@@ -1,0 +1,404 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch / CUDA port (slam_plus_plus_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card, the CUDA toolkit (nvcc) and nothing but this repository;
+it never falls back to the CPU.  Phases, each of which must pass:
+
+  1. build the hand-written kernels (csrc/*.cu) with nvcc for sm_90a;
+  2. K1 (p2c_edge_terms) and K2 (build_panels) against their plain torch
+     versions on the card at the bench shapes, float32 and float64, with
+     CUDA-event times of both;
+  3. a small scene assembled on the card (float32) against the CPU float64
+     path, which the tests hold against the JAX package;
+  4. the main path at full size: the bench scene (100 cameras, 8000 points,
+     seed 77, as bench.py), 1 warm-up + 4 timed damped Schur steps exactly as
+     bench.py times them, gated at chi2 <= 1.05 x the reference's 222855.82,
+     a per-stage split, then Lambda-LM optimize(5, 0.01) through the CLI's
+     code path;
+  5. both kernels' launch counters grew during phase 4;
+  6. a torch.profiler trace of the timed step: device time per kernel, the
+     sum and the union of kernel intervals, and the device's idle share of
+     the same run's wall time.
+
+The last two lines are a JSON object describing each kernel and the result
+line {"ok": true, "device": {...}}.
+"""
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+SEED = 2024
+N_CAMS, N_POINTS, SCENE_SEED = 100, 8000, 77      # bench.py's scene
+TIMED_STEPS = 4
+REF_FINAL_CHI2 = 222855.82                        # bench.py's gate
+BENCH_E, BENCH_NL, BENCH_M = 608000, 8000, 76     # uniform layout of that scene
+BENCH_MIN_OBS = 32                                # its least-observed landmark
+
+
+def check(ok, what):
+    if not ok:
+        raise RuntimeError(f"chip_smoke: FAILED: {what}")
+
+
+def main() -> int:
+    import torch
+
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"python {sys.version.split()[0]}")
+    if not torch.cuda.is_available():
+        print("error: torch sees no CUDA device; chip_smoke.py runs only on a GPU",
+              file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    print(f"card: {card}")
+
+    sys.path.insert(0, REPO)
+    from slam_plus_plus_tpu_torch.config import pin_precision
+    from slam_plus_plus_tpu_torch.ops import _build
+
+    pin_precision()
+    dev = torch.device("cuda", 0)
+
+    # ---- 1. build ---------------------------------------------------------
+    _, secs, log = _build.build(force=True)
+    print(f"build: nvcc {secs:.1f} s -> {os.path.relpath(_build.LIB_PATH, REPO)}")
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()}")
+
+    # ---- 2. kernels against their plain versions ---------------------------
+    k1 = kernel_phase_p2c(torch, dev)
+    k2 = kernel_phase_panels(torch, dev)
+
+    # ---- 3. small scene, card float32 against CPU float64 -------------------
+    small_scene_check(torch, dev)
+
+    # ---- 4. main path at full size -----------------------------------------
+    step, states0 = main_path(torch, dev, card, (k1, k2))
+
+    # ---- 6. where the device time of a step goes ----------------------------
+    profile_steps(torch, step, states0)
+
+    print(f"card: {card}")
+    print(json.dumps({"kernels": [k1, k2]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def cuda_ms(torch, fn, reps=11):
+    """Median CUDA-event time of fn() in ms, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def compare(torch, name, got, want, tol, names):
+    """Max |got - want| over outputs, and max of it over each output's scale
+    (printed per output); fails above tol * scale."""
+    abs_err, rel_err, per = 0.0, 0.0, []
+    for n, g, w in zip(names, got, want):
+        check(g.shape == w.shape and g.dtype == w.dtype, f"{name} {n} shape")
+        check(bool(torch.isfinite(g).all()), f"{name} {n} not finite")
+        err = float((g - w).abs().max())
+        scale = max(float(w.abs().max()), 1.0)
+        check(err <= tol * scale, f"{name} {n}: {err:.3e} > {tol:g} x {scale:.3e}")
+        abs_err, rel_err = max(abs_err, err), max(rel_err, err / scale)
+        per.append(f"{n} {err / scale:.1e}")
+    print(f"  {name} err/scale: " + ", ".join(per))
+    return abs_err, rel_err
+
+
+def kernel_phase_p2c(torch, dev):
+    from slam_plus_plus_tpu_torch.ops.p2c import p2c_edge_terms, p2c_edge_terms_plain
+
+    E = BENCH_E
+    rng = np.random.default_rng(SEED)
+    cam = np.zeros((11, E))
+    # cameras near the origin looking down +z at a cloud 4..8 deep, as in
+    # the bench scene (every point well in front of its camera)
+    cam[0:3] = rng.normal(0, 0.3, (3, E))
+    cam[3:6] = rng.normal(0, 0.1, (3, E))
+    cam[3:6, :1000] = 0.0                                  # theta = 0
+    cam[6:8] = rng.uniform(450, 550, (2, E))
+    cam[8:10] = rng.uniform(300, 340, (2, E))
+    cam[10] = rng.normal(0, 1e-7, E) * cam[6:8].mean(0)    # k r^2 ~ 1e-2
+    pt = rng.uniform(-2, 2, (3, E))
+    pt[2] += 6.0
+    z = np.stack([rng.uniform(0, 640, E), rng.uniform(0, 480, E)])
+    info = np.tile(np.array([[1.0], [0.0], [0.0], [1.0]]), (1, E))
+    dummy = rng.random(E) < (BENCH_E - 457543) / BENCH_E  # the bench's dummy share
+    info[:, dummy] = 0.0
+    z[:, dummy] = 0.0
+
+    result = None
+    for dt, tol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
+        args = [torch.tensor(a, dtype=dt, device=dev) for a in (cam, pt, z, info)]
+        got = p2c_edge_terms(*args)
+        want = p2c_edge_terms_plain(*args)
+        abs_err, rel_err = compare(torch, f"K1 {str(dt)[6:]}", got, want, tol,
+                                   ("chi2", "hdiag", "g_cam", "g_pt", "hcc", "hcp", "hpp"))
+        ms = cuda_ms(torch, lambda: p2c_edge_terms(*args))
+        plain_ms = cuda_ms(torch, lambda: p2c_edge_terms_plain(*args))
+        gbs = E * 94 * args[0].element_size() / (ms * 1e-3) / 1e9
+        print(f"K1 p2c_edge_terms {str(dt)[6:]} E={E}: max abs err {abs_err:.3e}, "
+              f"max err/scale {rel_err:.3e} (tol {tol:g}); kernel {ms:.4f} ms "
+              f"({gbs:.0f} GB/s of inputs+outputs), plain {plain_ms:.4f} ms")
+        if dt == torch.float32:
+            result = dict(name="p2c_edge_terms", route="cuda",
+                          source="slam_plus_plus_tpu_torch/csrc/p2c.cu",
+                          replaces="slam_plus_plus_tpu/ops/pallas_p2c.py:185",
+                          launches=0, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+    return result
+
+
+def kernel_phase_panels(torch, dev):
+    from slam_plus_plus_tpu_torch.ops.panel import build_panels, build_panels_plain
+
+    Nl, M, Bl, Bp, n_cams = BENCH_NL, BENCH_M, 3, 6, N_CAMS
+    rng = np.random.default_rng(SEED + 1)
+    counts = rng.integers(BENCH_MIN_OBS, M + 1, Nl)
+    rows = np.argsort(rng.random((Nl, n_cams)), axis=1)[:, :M].astype(np.int32)
+    u4 = rng.normal(0, 1, (Nl, M, Bl, Bp))
+    slot = np.arange(M)[None, :]
+    pad = slot >= counts[:, None]
+    rows[pad] = 0                              # dummies repeat edge 0's camera
+    u4[pad] = 0.0
+    n_dup = int(((rows == 0) & ~pad).any(1)[pad.any(1)].sum())
+    a = rng.normal(0, 1, (Nl, Bl, Bl))
+    cinv = np.linalg.inv(a @ a.transpose(0, 2, 1) + np.eye(Bl)).reshape(Nl, Bl * Bl)
+    print(f"K2 inputs: {n_dup} landmarks hold a dummy slot on a camera they see")
+    check(n_dup > 0, "K2 inputs without duplicated (landmark, camera) slots")
+
+    result = None
+    for dt, tol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
+        u, r, c = (torch.tensor(u4, dtype=dt, device=dev),
+                   torch.tensor(rows, device=dev),
+                   torch.tensor(cinv, dtype=dt, device=dev))
+        got = build_panels(u, r, c, Bl, Bp, n_cams)
+        want = build_panels_plain(u, r, c, Bl, Bp, n_cams)
+        abs_err, rel_err = compare(torch, f"K2 {str(dt)[6:]}", got, want, tol, ("Ut", "Wt"))
+        ms = cuda_ms(torch, lambda: build_panels(u, r, c, Bl, Bp, n_cams))
+        plain_ms = cuda_ms(torch, lambda: build_panels_plain(u, r, c, Bl, Bp, n_cams))
+        print(f"K2 build_panels {str(dt)[6:]} Nl={Nl} M={M} cams={n_cams}: max abs err "
+              f"{abs_err:.3e}, max err/scale {rel_err:.3e} (tol {tol:g}); kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms (both with zeroed panels)")
+        if dt == torch.float32:
+            result = dict(name="build_panels", route="cuda",
+                          source="slam_plus_plus_tpu_torch/csrc/panel.cu",
+                          replaces="slam_plus_plus_tpu/ops/pallas_panel.py:89",
+                          launches=0, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+    return result
+
+
+def small_scene_check(torch, dev):
+    """Assemble a small scene on the card in float32 and on the CPU in
+    float64; the CPU path is held against the JAX package by the tests."""
+    from slam_plus_plus_tpu_torch.assembly.assembler import Assembler
+    from slam_plus_plus_tpu_torch.io import datasets
+    from slam_plus_plus_tpu_torch.io.parser import parse_g2o
+    from slam_plus_plus_tpu_torch.linalg.schur import SchurSolver
+    from slam_plus_plus_tpu_torch.solvers.lm import damp_system
+
+    path = os.path.join(_scene_dir(), "smoke_ba_10_300_5.txt")
+    datasets.write_g2o_ba(path, *datasets.make_ba_scene(n_cams=10, n_points=300, seed=5))
+    system = parse_g2o(path)
+    worst = 0.0
+    out = {}
+    for d in ("cpu", dev):
+        asm = Assembler(system, device=d)
+        bs = asm.assemble(asm.snapshot_states(system))
+        bs = damp_system(bs, bs.max_hdiag * 1e-3, asm.pp_diag_ids_dev)
+        out[str(d)] = (bs, SchurSolver(asm).solve(bs))
+    (ref, ref_dx), (got, got_dx) = out["cpu"], out[str(dev)]
+    for name, w, g in zip(ref._fields, ref, got):
+        w, g = w.double(), g.double().cpu()
+        scale = max(float(w.abs().max()), 1.0)
+        err = float((g - w).abs().max()) / scale
+        check(err <= 1e-4, f"small scene {name}: {err:.3e} x scale")
+        worst = max(worst, err)
+    dx_err = max(float((g.double().cpu() - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                 for w, g in zip(ref_dx, got_dx))
+    check(dx_err <= 1e-2, f"small scene damped step: {dx_err:.3e} relative")
+    print(f"small scene (10 cams, 300 pts): card float32 vs CPU float64 block "
+          f"system max err/scale {worst:.3e} (tol 1e-4), damped Schur step "
+          f"{dx_err:.3e} relative (tol 1e-2)")
+
+
+def _scene_dir():
+    from slam_plus_plus_tpu_torch.ops import _build
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    return _build.BUILD_DIR
+
+
+def main_path(torch, dev, card, kernels):
+    from slam_plus_plus_tpu_torch.app import main as cli
+    from slam_plus_plus_tpu_torch.assembly.assembler import Assembler
+    from slam_plus_plus_tpu_torch.io import datasets
+    from slam_plus_plus_tpu_torch.io.parser import parse_g2o
+    from slam_plus_plus_tpu_torch.linalg.schur import SchurSolver
+    from slam_plus_plus_tpu_torch.ops.p2c import p2c_edge_terms
+    from slam_plus_plus_tpu_torch.ops.panel import build_panels
+    from slam_plus_plus_tpu_torch.solvers.lm import damp_system
+
+    # the bench scene, cached beside the built kernels (bench.py caches it)
+    path = os.path.join(_scene_dir(), f"bench_ba_{N_CAMS}_{N_POINTS}_{SCENE_SEED}.txt")
+    t0 = time.perf_counter()
+    if not os.path.exists(path):
+        cams, pts, obs = datasets.make_ba_scene(n_cams=N_CAMS, n_points=N_POINTS,
+                                                seed=SCENE_SEED)
+        datasets.write_g2o_ba(path + ".tmp", cams, pts, obs)
+        os.replace(path + ".tmp", path)
+    t_scene = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    system = parse_g2o(path)
+    t_parse = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    asm = Assembler(system, device=dev)
+    schur = SchurSolver(asm)
+    t_plan = time.perf_counter() - t0
+    print(f"bench scene: {system.num_vertices} vertices, {system.num_edges} edges; "
+          f"Nl={asm.Nl} M={asm.M} slots={asm.Nl * asm.M} nred={schur.n_reduced}; "
+          f"{asm.dtype}; host: scene {t_scene:.1f} s, parse {t_parse:.1f} s, "
+          f"plan {t_plan:.1f} s")
+    check(asm.dtype == torch.float32, "the card path runs float32")
+
+    def assemble_damped(states):
+        bs = asm.assemble(states)
+        return damp_system(bs, bs.max_hdiag * 1e-3, asm.pp_diag_ids_dev)
+
+    def step(states):
+        bs = assemble_damped(states)
+        dx_p, dx_l = schur.solve(bs)
+        return asm.update(states, dx_p, dx_l), bs.chi2
+
+    states0 = asm.snapshot_states(system)
+    p2c_edge_terms.launches = 0
+    build_panels.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+
+    # bench.py: one warm-up step (its result is dropped), then 4 timed steps
+    t0 = time.perf_counter()
+    _, chi2 = step(states0)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    states = states0
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        states, chi2 = step(states)
+    torch.cuda.synchronize()
+    ms_iter = (time.perf_counter() - t0) / TIMED_STEPS * 1e3
+    final_chi2 = float(chi2)
+    check(np.isfinite(final_chi2) and final_chi2 <= 1.05 * REF_FINAL_CHI2,
+          f"chi2 after {TIMED_STEPS} steps {final_chi2:.2f} > 1.05 x {REF_FINAL_CHI2}")
+    print(f"damped Schur step: {ms_iter:.3f} ms/iter over {TIMED_STEPS} steps "
+          f"(first step {t_first * 1e3:.1f} ms) on {card}; chi2 after "
+          f"{TIMED_STEPS} steps {final_chi2:.2f} <= 1.05 x {REF_FINAL_CHI2}")
+
+    # stage split, synchronized around each stage
+    stages = {k: [] for k in ("assemble", "panels", "sc_gemm", "cholesky", "update")}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    states = states0
+    for _ in range(TIMED_STEPS):
+        bs = timed("assemble", lambda: assemble_damped(states))
+        c_inv, Ut, Wt = timed("panels", lambda: schur._uniform_panels(bs))
+        sc, rhs = timed("sc_gemm", lambda: schur._reduce(bs, Ut, Wt))
+        dx = timed("cholesky", lambda: schur._factor_solve(sc, rhs))
+        states = timed("update", lambda: asm.update(
+            states, *schur._back_substitute(bs, c_inv, Ut, dx)))
+    split = {k: statistics.median(v) for k, v in stages.items()}
+    print("stage split (median ms, synchronized): " +
+          ", ".join(f"{k} {v:.3f}" for k, v in split.items()) +
+          f"; sum {sum(split.values()):.3f}")
+
+    # Lambda-LM through the CLI's code path
+    args = cli.build_argparser().parse_args(["-i", path, "--device", dev.type, "-v"])
+    t0 = time.perf_counter()
+    lm_chi2, lm_iters = cli.run(args)
+    t_lm = time.perf_counter() - t0
+    check(np.isfinite(lm_chi2) and lm_chi2 <= 1.05 * REF_FINAL_CHI2,
+          f"LM chi2 {lm_chi2:.2f} > 1.05 x {REF_FINAL_CHI2}")
+    print(f"LM optimize(5, 0.01): chi2 {lm_chi2:.2f} in {lm_iters} iterations, "
+          f"{t_lm:.2f} s wall with parse and set-up")
+
+    launches = (p2c_edge_terms.launches, build_panels.launches)
+    print(f"launches during the main path: p2c_edge_terms {launches[0]}, "
+          f"build_panels {launches[1]}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for k, n in zip(kernels, launches):
+        check(n > 0, f"{k['name']} was not launched on the main path")
+        k["launches"] = n
+    return step, states0
+
+
+def profile_steps(torch, step, states0):
+    """torch.profiler over TIMED_STEPS damped Schur steps (after one
+    unprofiled warm-up).  Per iteration: device time of each kernel name,
+    the sum of all device activity times, their union on the timeline (busy
+    time), the wall time of the same profiled run and so the idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step(states0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states = states0
+        for _ in range(TIMED_STEPS):
+            states, _ = step(states)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        print(f"device profile: the trace holds no device activity; busy time and "
+              f"idle share not measured (wall {wall_ms:.3f} ms/iter under the profiler)")
+        return
+    per_name, busy_us, end_us = {}, 0.0, -1.0
+    for a, b, name in spans:
+        per_name[name] = per_name.get(name, 0.0) + (b - a)
+        busy_us += max(0.0, b - max(a, end_us))
+        end_us = max(end_us, b)
+    sum_ms = sum(per_name.values()) / 1e3 / TIMED_STEPS
+    busy_ms = busy_us / 1e3 / TIMED_STEPS
+    print(f"device profile over {TIMED_STEPS} steps: {len(spans) / TIMED_STEPS:.0f} device "
+          f"activities per iteration; per iteration: wall {wall_ms:.3f} ms under the "
+          f"profiler, sum of device activity times {sum_ms:.3f} ms, busy (union of their "
+          f"intervals) {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.1%}")
+    for name, us in sorted(per_name.items(), key=lambda kv: -kv[1])[:10]:
+        ms = us / 1e3 / TIMED_STEPS
+        print(f"  {ms:8.3f} ms/iter {ms / sum_ms:6.1%}  {name[:100]}")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

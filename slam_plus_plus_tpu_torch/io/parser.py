@@ -1,0 +1,205 @@
+"""g2o-dialect parser, bundle-adjustment subset.
+
+Port of slam_plus_plus_tpu/io/parser.py for the mono BA family:
+``VERTEX_CAM`` (world pose inverted into the internal world->camera form,
+distortion scaled by the mean focal length, reference
+include/slam_app/ParsePrimitives.h:861-927), ``VERTEX_XYZ`` and
+``EDGE_PROJECT_P2MC`` / ``EDGE_P2C`` / ``EDGE_P2MC``.  A token of a family
+the port does not handle yet raises ``NotImplementedError`` naming the
+ROADMAP.md item that ports it; it is never skipped silently.
+"""
+
+from __future__ import annotations
+
+import math
+import sys
+from typing import Dict, List
+
+import numpy as np
+
+from slam_plus_plus_tpu_torch import models  # noqa: F401  (registers types)
+from slam_plus_plus_tpu_torch.graph.system import GraphSystem
+
+_POSE_GRAPH = "ROADMAP.md Queue 1 item 15 (pose-graph batch GN)"
+_OTHER_BA = "ROADMAP.md Queue 1 item 10 (the other BA edge families)"
+_SIM3_ROCV = "ROADMAP.md Queue 1 item 16 (Sim(3) and ROCV families)"
+
+#: tokens of families the port does not parse yet -> the item that ports them
+_UNPORTED_TOKENS = {
+    **dict.fromkeys(
+        ("VERTEX2", "VERTEX_SE2", "VERTEX", "EDGE2", "EDGE_SE2", "EDGE",
+         "ODOMETRY", "LANDMARK2:XY", "EDGE_SE2_XY", "LANDMARK",
+         "EDGE_BEARING_SE2_XY", "LANDMARK2:RB", "EDGE_SE2_RB",
+         "EDGE_BEARING_SE2_RB", "VERTEX3", "VERTEX_SE3", "EDGE3", "EDGE_SE3",
+         "EDGE3:AXISANGLE", "EDGE_SE3:AXISANGLE", "EDGE3:TERNARY",
+         "EDGE_SE3_TERNARY", "LANDMARK3:XYZ", "EDGE_SE3_XYZ"), _POSE_GRAPH),
+    **dict.fromkeys(
+        ("VERTEX_SCAM", "EDGE_PROJECT_P2SC", "EDGE_P2SC", "VERTEX_INTRINSICS",
+         "EDGE_PROJECT_P2MCI", "EDGE_P2CI", "EDGE_P2MCI",
+         "VERTEX_SPHERON:QUAT", "EDGE_SPHERON_XYZ"), _OTHER_BA),
+    **dict.fromkeys(("VERTEX_CAM:SIM3", "VERTEX:SIM3"), _SIM3_ROCV),
+}
+
+
+def _sym_from_upper(values: List[float], n: int) -> np.ndarray:
+    """Upper-triangular row-major listing -> symmetric matrix."""
+    m = np.zeros((n, n))
+    k = 0
+    for i in range(n):
+        for j in range(i, n):
+            m[i, j] = values[k]
+            m[j, i] = values[k]
+            k += 1
+    return m
+
+
+def _quat_to_axis_angle(w, x, y, z) -> np.ndarray:
+    n = math.sqrt(w * w + x * x + y * y + z * z)
+    w, x, y, z = w / n, x / n, y / n, z / n
+    if w < 0:
+        w, x, y, z = -w, -x, -y, -z
+    vn = math.sqrt(x * x + y * y + z * z)
+    angle = 2.0 * math.atan2(vn, w)
+    if vn < 1e-12:
+        return np.zeros(3)
+    return np.array([x, y, z]) * (angle / vn)
+
+
+def _invert_cam_pose(pos: np.ndarray, qx, qy, qz, qw) -> np.ndarray:
+    """g2o VERTEX_CAM world pose -> internal world->camera [t, axis-angle]."""
+    n = math.sqrt(qw * qw + qx * qx + qy * qy + qz * qz)
+    qw, qx, qy, qz = qw / n, qx / n, qy / n, qz / n
+    # inverse (conjugate)
+    qw, qx, qy, qz = qw, -qx, -qy, -qz
+    # t = q^-1 * (-pos)
+    px, py, pz = -pos
+    uvx = qy * pz - qz * py
+    uvy = qz * px - qx * pz
+    uvz = qx * py - qy * px
+    uuvx = qy * uvz - qz * uvy
+    uuvy = qz * uvx - qx * uvz
+    uuvz = qx * uvy - qy * uvx
+    t = np.array([px + 2 * (qw * uvx + uuvx),
+                  py + 2 * (qw * uvy + uuvy),
+                  pz + 2 * (qw * uvz + uuvz)])
+    aa = _quat_to_axis_angle(qw, qx, qy, qz)
+    return np.concatenate([t, aa])
+
+
+class ParseStats:
+    def __init__(self):
+        self.lines = 0
+        self.vertices = 0
+        self.edges = 0
+        self.markers = 0
+        self.unknown_tokens: Dict[str, int] = {}
+
+
+def peek_dataset(path: str, max_lines: int = 5000) -> Dict[str, bool]:
+    """Pre-parse probe deciding the problem family (reference TDatasetPeeker).
+
+    Returns flags: has_se2, has_se3, has_landmark2d, has_landmark3d, has_ba,
+    has_intrinsics, has_stereo, has_spheron, has_rocv, has_sim3.
+    """
+    flags = dict(has_se2=False, has_se3=False, has_landmark2d=False,
+                 has_landmark3d=False, has_ba=False, has_intrinsics=False,
+                 has_stereo=False, has_spheron=False, has_rocv=False,
+                 has_sim3=False)
+    with open(path) as f:
+        for i, line in enumerate(f):
+            if i >= max_lines:
+                break
+            tok = line.split(maxsplit=1)[0].upper() if line.strip() else ""
+            if tok in ("EDGE2", "EDGE_SE2", "EDGE", "ODOMETRY", "VERTEX2", "VERTEX_SE2"):
+                flags["has_se2"] = True
+            elif tok in ("LANDMARK2:XY", "EDGE_SE2_XY", "LANDMARK",
+                         "EDGE_BEARING_SE2_XY", "LANDMARK2:RB",
+                         "EDGE_SE2_RB", "EDGE_BEARING_SE2_RB"):
+                flags["has_landmark2d"] = True
+            elif tok in ("EDGE3", "EDGE_SE3", "EDGE3:AXISANGLE", "EDGE_SE3:AXISANGLE", "VERTEX3", "VERTEX_SE3"):
+                flags["has_se3"] = True
+            elif tok in ("LANDMARK3:XYZ", "EDGE_SE3_XYZ"):
+                flags["has_landmark3d"] = True
+            elif tok in ("EDGE_PROJECT_P2MC", "EDGE_P2MC", "EDGE_P2C", "VERTEX_CAM"):
+                flags["has_ba"] = True
+            elif tok in ("EDGE_PROJECT_P2MCI", "EDGE_P2CI", "EDGE_P2MCI",
+                         "VERTEX_INTRINSICS"):
+                flags["has_ba"] = True
+                flags["has_intrinsics"] = True
+            elif tok in ("EDGE_PROJECT_P2SC", "EDGE_P2SC", "VERTEX_SCAM"):
+                flags["has_stereo"] = True
+            elif tok in ("VERTEX_SPHERON:QUAT", "EDGE_SPHERON_XYZ"):
+                flags["has_spheron"] = True
+            elif tok.startswith("ROCV"):
+                flags["has_rocv"] = True
+            elif tok in ("VERTEX_CAM:SIM3", "VERTEX:SIM3"):
+                flags["has_sim3"] = True
+    return flags
+
+
+def parse_g2o(path: str) -> GraphSystem:
+    """Parse a mono BA dataset into a GraphSystem.
+
+    VERTEX_XYZ belongs to the camera edges only when the dataset peeks as BA;
+    elsewhere it is part of the 3D landmark family, which is not ported.
+    """
+    system = GraphSystem()
+    stats = ParseStats()
+    peek = peek_dataset(path)
+    is_ba = peek["has_ba"] or peek["has_stereo"] or peek["has_spheron"]
+
+    with open(path) as f:
+        for line in f:
+            stats.lines += 1
+            line = line.strip()
+            if not line or line.startswith(("#", "%", "//")):
+                continue
+            parts = line.split()
+            tok = parts[0].upper()
+            try:
+                _dispatch_line(tok, parts[1:], system, stats, is_ba)
+            except (IndexError, ValueError):
+                # reference: "error: line N: line is truncated" + continue
+                # (reference include/slam_app/ParsePrimitives.h:594-597)
+                print(f"error: line {stats.lines}: line is truncated",
+                      file=sys.stderr)
+    system.parse_stats = stats
+    return system
+
+
+def _dispatch_line(tok, vals, system, stats, is_ba):
+    if tok == "VERTEX_CAM":
+        vid = int(vals[0])
+        pos = np.array([float(v) for v in vals[1:4]])
+        qx, qy, qz, qw = (float(vals[4]), float(vals[5]),
+                          float(vals[6]), float(vals[7]))
+        fx, fy, cx, cy, d = (float(vals[8]), float(vals[9]),
+                             float(vals[10]), float(vals[11]), float(vals[12]))
+        pose = _invert_cam_pose(pos, qx, qy, qz, qw)
+        state = np.concatenate([pose, [fx, fy, cx, cy, d * 0.5 * (fx + fy)]])
+        system.add_vertex(vid, "cam", state)
+        stats.vertices += 1
+    elif tok == "VERTEX_XYZ":
+        if not is_ba:
+            raise NotImplementedError(
+                f"token {tok} outside a BA dataset: not ported yet, see "
+                f"{_POSE_GRAPH}")
+        vid = int(vals[0])
+        system.add_vertex(vid, "xyz", np.array([float(v) for v in vals[1:4]]))
+        stats.vertices += 1
+    elif tok in ("EDGE_PROJECT_P2MC", "EDGE_P2C", "EDGE_P2MC"):
+        # <pt-id> <cam-id> <ox> <oy> <info 2x2 upper>
+        pt, cam = int(vals[0]), int(vals[1])
+        z = np.array([float(vals[2]), float(vals[3])])
+        info = _sym_from_upper([float(v) for v in vals[4:7]], 2)
+        system.add_edge("edge_p2c", (cam, pt), z, info)
+        stats.edges += 1
+    elif tok in _UNPORTED_TOKENS or tok.startswith("ROCV"):
+        item = _UNPORTED_TOKENS.get(tok, _SIM3_ROCV)
+        raise NotImplementedError(f"token {tok}: not ported yet, see {item}")
+    elif tok == "CONSISTENCY_MARKER":
+        stats.markers += 1  # only the incremental engines act on markers
+    elif tok in ("EQUIV", "PHASE"):
+        pass  # bookkeeping tokens, ignored like the reference's CIgnore list
+    else:
+        stats.unknown_tokens[tok] = stats.unknown_tokens.get(tok, 0) + 1

@@ -1,0 +1,21 @@
+"""Vertex/edge types.  Importing this package registers the ported types
+(the mono BA family: ``cam``, ``xyz``, ``edge_p2c``)."""
+
+from slam_plus_plus_tpu_torch.models import ba_types  # noqa: F401
+from slam_plus_plus_tpu_torch.models.types import (
+    EDGE_TYPES,
+    VERTEX_TYPES,
+    EdgeType,
+    VertexType,
+    edge_type,
+    vertex_type,
+)
+
+__all__ = [
+    "EdgeType",
+    "VertexType",
+    "EDGE_TYPES",
+    "VERTEX_TYPES",
+    "edge_type",
+    "vertex_type",
+]

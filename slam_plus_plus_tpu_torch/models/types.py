@@ -1,0 +1,61 @@
+"""Vertex/edge type registry (port of slam_plus_plus_tpu/models/types.py).
+
+A type is data: dimensions plus batched torch functions.  ``boxplus`` and
+``residual`` take a leading batch dimension (``[..., state_dim]``) instead of
+being ``vmap``-ed over single elements.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+VERTEX_TYPES: Dict[str, "VertexType"] = {}
+EDGE_TYPES: Dict[str, "EdgeType"] = {}
+
+
+@dataclasses.dataclass(frozen=True)
+class VertexType:
+    """state_dim — stored state size; tangent_dim — Hessian block size;
+    boxplus — batched retraction [..., state] x [..., tangent] -> [..., state];
+    schur_class — "pose" forms the reduced system, "landmark" is eliminated."""
+
+    name: str
+    state_dim: int
+    tangent_dim: int
+    boxplus: Callable
+    schur_class: str = "pose"
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeType:
+    """residual — batched fn (vertex_states tuple, z) -> [..., residual_dim],
+    r = z - h(x) with chi2 = r^T Sigma^-1 r (reference convention);
+    initializer — host numpy fn creating missing vertices on insert."""
+
+    name: str
+    vertex_types: Tuple[str, ...]
+    residual_dim: int
+    measurement_dim: int
+    residual: Callable
+    initializer: Optional[Callable] = None
+
+    @property
+    def arity(self) -> int:
+        return len(self.vertex_types)
+
+
+def vertex_type(name: str, state_dim: int, tangent_dim: int, boxplus: Callable,
+                schur_class: str = "pose") -> VertexType:
+    vt = VertexType(name, state_dim, tangent_dim, boxplus, schur_class)
+    VERTEX_TYPES[name] = vt
+    return vt
+
+
+def edge_type(name: str, vertex_types: Sequence[str], residual_dim: int,
+              measurement_dim: int, residual: Callable,
+              initializer: Optional[Callable] = None) -> EdgeType:
+    et = EdgeType(name, tuple(vertex_types), residual_dim, measurement_dim,
+                  residual, initializer)
+    EDGE_TYPES[name] = et
+    return et
