@@ -9,7 +9,10 @@ it never falls back to the CPU.  Phases, each of which must pass:
   1. build the hand-written kernels (csrc/*.cu) with nvcc for sm_90a;
   2. K1 (p2c_edge_terms) and K2 (build_panels) against their plain torch
      versions on the card at the bench shapes, float32 and float64, with
-     CUDA-event times of both;
+     CUDA-event times of both beside each kernel's bound; K2 on the solver's
+     strided view of its blocks, bitwise, at the bench shape and at a second
+     one whose panel rows need several column windows and whose ranges start
+     off 16-byte lines (1000 points, 75 slots, 871 cameras);
   3. a small scene assembled on the card (float32) against the CPU float64
      path, which the tests hold against the JAX package;
   4. the main path at full size: the bench scene (100 cameras, 8000 points,
@@ -20,7 +23,8 @@ it never falls back to the CPU.  Phases, each of which must pass:
   5. both kernels' launch counters grew during phase 4;
   6. a torch.profiler trace of the timed step: device time per kernel, the
      sum and the union of kernel intervals, and the device's idle share of
-     the same run's wall time.
+     the same run's wall time; and a trace of one panels stage, which must
+     hold K2 and no fill kernel.
 
 The last two lines are a JSON object describing each kernel and the result
 line {"ok": true, "device": {...}}.
@@ -42,6 +46,10 @@ TIMED_STEPS = 4
 REF_FINAL_CHI2 = 222855.82                        # bench.py's gate
 BENCH_E, BENCH_NL, BENCH_M = 608000, 8000, 76     # uniform layout of that scene
 BENCH_MIN_OBS = 32                                # its least-observed landmark
+K2_WIDE = (1000, 75, 871)     # Nl, M, cameras: several windows, odd M and cameras
+HBM_BYTES_PER_S = 3.35e12                         # H100 SXM, NVIDIA's data sheet
+PEAK_FLOPS = {4: 67e12, 8: 34e12}                 # float32 / float64 outside tensor cores
+P2C_FLOPS_PER_SLOT = 420   # counted in csrc/p2c.cu; sin, cos, sqrt, division one each
 
 
 def check(ok, what):
@@ -71,10 +79,12 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     # ---- 1. build ---------------------------------------------------------
-    _, secs, log = _build.build(force=True)
-    print(f"build: nvcc {secs:.1f} s -> {os.path.relpath(_build.LIB_PATH, REPO)}")
+    _, secs, per_source, log = _build.build(force=True)
+    print(f"build: {secs:.1f} s -> {os.path.relpath(_build.LIB_PATH, REPO)}; one nvcc per "
+          f"source, in parallel: " + ", ".join(f"{s} {t:.1f} s" for s, t in per_source.items())
+          + f" (one after another: {sum(per_source.values()):.1f} s)")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
+        if any(w in line for w in ("entry function", "registers", "spill")):
             print(f"  ptxas: {line.strip()}")
 
     # ---- 2. kernels against their plain versions ---------------------------
@@ -85,10 +95,11 @@ def main() -> int:
     small_scene_check(torch, dev)
 
     # ---- 4. main path at full size -----------------------------------------
-    step, states0 = main_path(torch, dev, card, (k1, k2))
+    step, states0, panels_stage = main_path(torch, dev, card, (k1, k2))
 
     # ---- 6. where the device time of a step goes ----------------------------
     profile_steps(torch, step, states0)
+    profile_panels_stage(torch, panels_stage)
 
     print(f"card: {card}")
     print(json.dumps({"kernels": [k1, k2]}))
@@ -98,8 +109,29 @@ def main() -> int:
     return 0
 
 
-def cuda_ms(torch, fn, reps=11):
-    """Median CUDA-event time of fn() in ms, after one warm-up call."""
+def cuda_ms(torch, fn, reps=10, rounds=5):
+    """Device time of fn() in ms: CUDA events around `reps` back-to-back
+    calls, over reps, the median of `rounds` such runs, after a warm-up.
+    The host enqueues ahead of the device unless a call's host work is the
+    longer of the two."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return statistics.median(times)
+
+
+def call_ms(torch, fn, reps=11):
+    """Median CUDA-event time of one call of fn() in ms, from an idle device,
+    so the call's host work counts."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -112,6 +144,14 @@ def cuda_ms(torch, fn, reps=11):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def bound(nbytes, flops, itemsize):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate and
+    the operations over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[itemsize] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def compare(torch, name, got, want, tol, names):
@@ -160,55 +200,101 @@ def kernel_phase_p2c(torch, dev):
         abs_err, rel_err = compare(torch, f"K1 {str(dt)[6:]}", got, want, tol,
                                    ("chi2", "hdiag", "g_cam", "g_pt", "hcc", "hcp", "hpp"))
         ms = cuda_ms(torch, lambda: p2c_edge_terms(*args))
-        plain_ms = cuda_ms(torch, lambda: p2c_edge_terms_plain(*args))
-        gbs = E * 94 * args[0].element_size() / (ms * 1e-3) / 1e9
+        one_ms = call_ms(torch, lambda: p2c_edge_terms(*args))
+        plain_ms = call_ms(torch, lambda: p2c_edge_terms_plain(*args))
+        size = args[0].element_size()
+        bound_ms, bound_by = bound(E * 94 * size, E * P2C_FLOPS_PER_SLOT, size)
+        gbs = E * 94 * size / (ms * 1e-3) / 1e9
         print(f"K1 p2c_edge_terms {str(dt)[6:]} E={E}: max abs err {abs_err:.3e}, "
-              f"max err/scale {rel_err:.3e} (tol {tol:g}); kernel {ms:.4f} ms "
-              f"({gbs:.0f} GB/s of inputs+outputs), plain {plain_ms:.4f} ms")
+              f"max err/scale {rel_err:.3e} (tol {tol:g}); back to back {ms:.4f} ms "
+              f"({gbs:.0f} GB/s of inputs+outputs), bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{bound_ms / ms:.1%} of the bound; one call from idle {one_ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms")
         if dt == torch.float32:
             result = dict(name="p2c_edge_terms", route="cuda",
                           source="slam_plus_plus_tpu_torch/csrc/p2c.cu",
                           replaces="slam_plus_plus_tpu/ops/pallas_p2c.py:185",
-                          launches=0, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+                          launches=0, max_abs_err=abs_err, ms=one_ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                          ms_back_to_back=ms, launches_per_step=None)
     return result
 
 
-def kernel_phase_panels(torch, dev):
-    from slam_plus_plus_tpu_torch.ops.panel import build_panels, build_panels_plain
-
-    Nl, M, Bl, Bp, n_cams = BENCH_NL, BENCH_M, 3, 6, N_CAMS
-    rng = np.random.default_rng(SEED + 1)
+def panel_inputs(torch, dev, dt, Nl, M, n_cams, seed, Bl=3, Bp=6):
+    """Random K2 inputs in the solver's form: the H_pl blocks stored
+    [Nl, M, Bp, Bl] and handed over as the transposed view [Nl, M, Bl, Bp];
+    every landmark sees BENCH_MIN_OBS..M distinct cameras and pads the rest
+    with zero blocks on its first camera, as the uniform layout does."""
+    rng = np.random.default_rng(seed)
     counts = rng.integers(BENCH_MIN_OBS, M + 1, Nl)
     rows = np.argsort(rng.random((Nl, n_cams)), axis=1)[:, :M].astype(np.int32)
-    u4 = rng.normal(0, 1, (Nl, M, Bl, Bp))
-    slot = np.arange(M)[None, :]
-    pad = slot >= counts[:, None]
-    rows[pad] = 0                              # dummies repeat edge 0's camera
-    u4[pad] = 0.0
-    n_dup = int(((rows == 0) & ~pad).any(1)[pad.any(1)].sum())
+    store = rng.normal(0, 1, (Nl, M, Bp, Bl))
+    pad = np.arange(M)[None, :] >= counts[:, None]
+    rows[pad] = np.broadcast_to(rows[:, :1], rows.shape)[pad]
+    store[pad] = 0.0
     a = rng.normal(0, 1, (Nl, Bl, Bl))
     cinv = np.linalg.inv(a @ a.transpose(0, 2, 1) + np.eye(Bl)).reshape(Nl, Bl * Bl)
-    print(f"K2 inputs: {n_dup} landmarks hold a dummy slot on a camera they see")
-    check(n_dup > 0, "K2 inputs without duplicated (landmark, camera) slots")
+    u4 = torch.tensor(store, dtype=dt, device=dev).transpose(2, 3)
+    return (u4, torch.tensor(rows, device=dev), torch.tensor(cinv, dtype=dt, device=dev),
+            int(pad.any(1).sum()))
 
+
+def panel_bound(Nl, M, n_cams, itemsize, Bl=3, Bp=6):
+    """K2's bound: u4, rows and C^-1 read once and both panels written once;
+    the operations are the slot sums of Ut and the products and sums of Wt."""
+    out = Nl * Bl * n_cams * Bp
+    nbytes = (Nl * M * Bl * Bp + Nl * Bl * Bl + 2 * out) * itemsize + Nl * M * 4
+    return bound(nbytes, Nl * M * Bl * Bp + (2 * Bl - 1) * out, itemsize)
+
+
+def kernel_phase_panels(torch, dev):
+    from slam_plus_plus_tpu_torch.ops import panel
+    from slam_plus_plus_tpu_torch.ops.panel import build_panels, build_panels_plain
+
+    Bl, Bp = 3, 6
     result = None
-    for dt, tol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
-        u, r, c = (torch.tensor(u4, dtype=dt, device=dev),
-                   torch.tensor(rows, device=dev),
-                   torch.tensor(cinv, dtype=dt, device=dev))
-        got = build_panels(u, r, c, Bl, Bp, n_cams)
-        want = build_panels_plain(u, r, c, Bl, Bp, n_cams)
-        abs_err, rel_err = compare(torch, f"K2 {str(dt)[6:]}", got, want, tol, ("Ut", "Wt"))
-        ms = cuda_ms(torch, lambda: build_panels(u, r, c, Bl, Bp, n_cams))
-        plain_ms = cuda_ms(torch, lambda: build_panels_plain(u, r, c, Bl, Bp, n_cams))
-        print(f"K2 build_panels {str(dt)[6:]} Nl={Nl} M={M} cams={n_cams}: max abs err "
-              f"{abs_err:.3e}, max err/scale {rel_err:.3e} (tol {tol:g}); kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms (both with zeroed panels)")
-        if dt == torch.float32:
-            result = dict(name="build_panels", route="cuda",
-                          source="slam_plus_plus_tpu_torch/csrc/panel.cu",
-                          replaces="slam_plus_plus_tpu/ops/pallas_panel.py:89",
-                          launches=0, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+    for Nl, M, n_cams in ((BENCH_NL, BENCH_M, N_CAMS), K2_WIDE):
+        for dt, tol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
+            size = torch.tensor([], dtype=dt).element_size()
+            u, r, c, n_pad = panel_inputs(torch, dev, dt, Nl, M, n_cams, SEED + 1)
+            check(not u.is_contiguous() and n_pad > 0, "K2 inputs: strided view with dummies")
+            TL, W = panel.panel_tiling(Nl, M, Bl, Bp, n_cams, size)
+            n_win = len(panel.panel_windows(n_cams, W))
+            # the kernel's unaligned paths: landmark block ranges that start off
+            # a 16-byte line, and panel rows whose offset mod 16 changes per row
+            off16 = int((np.arange(Nl) * (M * Bl * Bp * size) % 16 != 0).sum())
+            row_shift = n_cams * Bp * size % 16 != 0
+            if (Nl, M, n_cams) == K2_WIDE and dt == torch.float32:
+                check(off16 and row_shift, "K2 wide shape: no unaligned ranges or rows")
+            got = build_panels(u, r, c, Bl, Bp, n_cams)
+            torch.cuda.synchronize()
+            want = build_panels_plain(u, r, c, Bl, Bp, n_cams)
+            name = f"K2 {str(dt)[6:]} cams={n_cams}"
+            abs_err, rel_err = compare(torch, name, got, want, tol, ("Ut", "Wt"))
+            dense = build_panels(u.contiguous(), r, c, Bl, Bp, n_cams)
+            check(all(torch.equal(g, d) for g, d in zip(got, dense)),
+                  f"{name}: the strided view and a contiguous copy disagree")
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"{name}: not bitwise equal to the plain version")
+            ms = cuda_ms(torch, lambda: build_panels(u, r, c, Bl, Bp, n_cams))
+            one_ms = call_ms(torch, lambda: build_panels(u, r, c, Bl, Bp, n_cams))
+            plain_ms = call_ms(torch, lambda: build_panels_plain(u, r, c, Bl, Bp, n_cams))
+            bound_ms, bound_by = panel_bound(Nl, M, n_cams, size)
+            print(f"K2 build_panels {str(dt)[6:]} Nl={Nl} M={M} cams={n_cams} (TL={TL}, "
+                  f"{n_win} window(s) of <= {W} cameras; {n_pad} landmarks with dummy "
+                  f"slots on a camera they see; {off16} block ranges off a 16-byte line, "
+                  f"row offsets shifting: {row_shift}): max abs err {abs_err:.3e}, max err/scale "
+                  f"{rel_err:.3e} (tol {tol:g}), bitwise equal to plain; back to back "
+                  f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} "
+                  f"of the bound; one call from idle {one_ms:.4f} ms, plain {plain_ms:.4f} ms")
+            if n_cams == N_CAMS and dt == torch.float32:
+                result = dict(name="build_panels", route="cuda",
+                              source="slam_plus_plus_tpu_torch/csrc/panel.cu",
+                              replaces="slam_plus_plus_tpu/ops/pallas_panel.py:89",
+                              launches=0, max_abs_err=abs_err, ms=one_ms,
+                              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                              library_ms=None, ms_back_to_back=ms, launches_per_step=None)
+            del u, r, c, got, want, dense
     return result
 
 
@@ -304,11 +390,14 @@ def main_path(torch, dev, card, kernels):
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0
     states = states0
+    before = (p2c_edge_terms.launches, build_panels.launches)
     t0 = time.perf_counter()
     for _ in range(TIMED_STEPS):
         states, chi2 = step(states)
     torch.cuda.synchronize()
     ms_iter = (time.perf_counter() - t0) / TIMED_STEPS * 1e3
+    for k, b, n in zip(kernels, before, (p2c_edge_terms.launches, build_panels.launches)):
+        k["launches_per_step"] = (n - b) / TIMED_STEPS
     final_chi2 = float(chi2)
     check(np.isfinite(final_chi2) and final_chi2 <= 1.05 * REF_FINAL_CHI2,
           f"chi2 after {TIMED_STEPS} steps {final_chi2:.2f} > 1.05 x {REF_FINAL_CHI2}")
@@ -352,12 +441,15 @@ def main_path(torch, dev, card, kernels):
 
     launches = (p2c_edge_terms.launches, build_panels.launches)
     print(f"launches during the main path: p2c_edge_terms {launches[0]}, "
-          f"build_panels {launches[1]}; peak device memory "
+          f"build_panels {launches[1]}; per damped Schur step: p2c_edge_terms "
+          f"{kernels[0]['launches_per_step']:g}, build_panels "
+          f"{kernels[1]['launches_per_step']:g}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for k, n in zip(kernels, launches):
         check(n > 0, f"{k['name']} was not launched on the main path")
         k["launches"] = n
-    return step, states0
+    bs = assemble_damped(states0)
+    return step, states0, lambda: schur._uniform_panels(bs)
 
 
 def profile_steps(torch, step, states0):
@@ -398,6 +490,34 @@ def profile_steps(torch, step, states0):
     for name, us in sorted(per_name.items(), key=lambda kv: -kv[1])[:10]:
         ms = us / 1e3 / TIMED_STEPS
         print(f"  {ms:8.3f} ms/iter {ms / sum_ms:6.1%}  {name[:100]}")
+
+
+def profile_panels_stage(torch, panels_stage):
+    """torch.profiler over one panels stage of the bench step (C^-1 and K2):
+    its device activities by name.  The panels come from K2 alone: no fill
+    kernel may appear, and exactly one K2 launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    panels_stage()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        panels_stage()
+        torch.cuda.synchronize()
+    per_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = per_name.get(e.name, (0, 0.0))
+            per_name[e.name] = (n + 1, us + e.time_range.end - e.time_range.start)
+    check(per_name, "the panels stage trace holds no device activity")
+    print(f"panels stage profile: {sum(n for n, _ in per_name.values())} device activities, "
+          f"{sum(us for _, us in per_name.values()) / 1e3:.4f} ms of device time")
+    for name, (n, us) in sorted(per_name.items(), key=lambda kv: -kv[1][1]):
+        print(f"  {n:3d} x {us / 1e3:8.4f} ms  {name[:100]}")
+    check(not any("fill" in name.lower() for name in per_name),
+          "a fill kernel ran in the panels stage")
+    check(sum(n for name, (n, _) in per_name.items() if "panel_kernel" in name) == 1,
+          "the panels stage did not launch K2 exactly once")
 
 
 if __name__ == "__main__":

@@ -78,8 +78,9 @@ class SchurSolver:
         asm = self.asm
         Np, Bp, Nl, Bl, M = asm.Np, asm.Bp, asm.Nl, asm.Bl, self.M
         c_inv = planar.binv(system.ll_blocks, Bl)
+        # a transposed view of the H_pl blocks: K2 reads it through its strides
         u4 = (system.pl_blocks[self._pl_offset:self._pl_offset + Nl * M]
-              .reshape(Nl, M, Bp, Bl).transpose(2, 3).contiguous())
+              .reshape(Nl, M, Bp, Bl).transpose(2, 3))
         Ut, Wt = build_panels(u4, self._rows_dev, c_inv, Bl, Bp, Np)
         return c_inv, Ut, Wt
 

@@ -1,6 +1,7 @@
 """Port parity: kernel K2's plain version against the JAX Pallas panel
 kernel (interpret mode) and against SchurSolver._uniform_panels (the one-hot
-einsum path), and the port's Schur solve against the JAX one, float64."""
+einsum path), and the port's Schur solve against the JAX one, float64; the
+kernel's tiling helper and the strided u4 view the solver hands it."""
 
 import numpy as np
 import pytest
@@ -22,6 +23,8 @@ from slam_plus_plus_tpu_torch.assembly.assembler import BlockSystem as TBlockSys
 from slam_plus_plus_tpu_torch.io.parser import parse_g2o as tparse
 from slam_plus_plus_tpu_torch.linalg.schur import SchurSolver as TSchur
 from slam_plus_plus_tpu_torch.ops import planar as tplanar
+from slam_plus_plus_tpu_torch.linalg import schur as tschur_mod
+from slam_plus_plus_tpu_torch.ops import panel as tpanel
 from slam_plus_plus_tpu_torch.ops.panel import build_panels
 
 
@@ -68,6 +71,66 @@ def test_panel_plain_matches_pallas_interpret():
     _close(got[1], want[1], 1e-10 * scale)
 
 
+@pytest.mark.parametrize("itemsize", [4, 8], ids=["f32", "f64"])
+@pytest.mark.parametrize("n_cams", [1, 100, 871, 5000])
+def test_panel_tiling_covers_every_column_once(n_cams, itemsize):
+    """The kernel's (landmarks per CTA, column window) choice at the bench's
+    M = 76 and 3x6 blocks: its shared memory fits the budget, it has one
+    accumulating thread per (landmark, i, j), and its windows cover every
+    panel column exactly once."""
+    Nl, M, Bl, Bp = 8000, 76, 3, 6
+    TL, W = tpanel.panel_tiling(Nl, M, Bl, Bp, n_cams, itemsize)
+    assert 1 <= TL and TL * Bl * Bp <= tpanel.PANEL_THREADS and 1 <= W <= n_cams
+    assert tpanel.panel_smem_bytes(TL, W, M, Bl, Bp, itemsize) <= tpanel.PANEL_SMEM_BUDGET
+    hits = np.zeros(n_cams * Bp, np.int64)
+    for cam0, wc in tpanel.panel_windows(n_cams, W):
+        assert 1 <= wc <= W
+        hits[cam0 * Bp:(cam0 + wc) * Bp] += 1
+    assert (hits == 1).all()
+    if n_cams == 100:       # the bench shape: whole rows, one window
+        assert W == n_cams
+    if n_cams == 5000:      # too wide for one window in either dtype
+        assert W < n_cams
+
+
+def test_panel_tiling_past_the_budget():
+    """Slots too many for the budget go up to the card's limit, then raise."""
+    TL, W = tpanel.panel_tiling(10, 600, 3, 6, 50, 8)
+    nbytes = tpanel.panel_smem_bytes(TL, W, 600, 3, 6, 8)
+    assert tpanel.PANEL_SMEM_BUDGET < nbytes <= tpanel.SMEM_MAX
+    with pytest.raises(ValueError, match="shared memory"):
+        tpanel.panel_tiling(10, 2000, 3, 6, 50, 8)
+
+
+def _random_panel_inputs(seed, Nl, M, Bl, Bp, n_cams):
+    rng = np.random.default_rng(seed)
+    rows = np.argsort(rng.random((Nl, n_cams)), axis=1)[:, :M].astype(np.int32)
+    counts = rng.integers(1, M + 1, Nl)
+    pad = np.arange(M)[None] >= counts[:, None]
+    rows[pad] = np.broadcast_to(rows[:, :1], rows.shape)[pad]   # edge 0's camera
+    store = rng.normal(0, 1, (Nl, M, Bp, Bl))                   # H_pl blocks
+    store[pad] = 0.0
+    a = rng.normal(0, 1, (Nl, Bl, Bl))
+    cinv = np.linalg.inv(a @ a.transpose(0, 2, 1) + np.eye(Bl)).reshape(Nl, Bl * Bl)
+    return torch.from_numpy(store), torch.from_numpy(rows), torch.from_numpy(cinv)
+
+
+def test_panel_plain_on_strided_view_is_bitwise():
+    """The plain version on the solver's transposed view of the blocks gives
+    the same bits as on a contiguous copy; the view is one the kernel reads
+    in place, a broadcast one is not."""
+    Nl, M, Bl, Bp, n_cams = 20, 9, 3, 6, 12
+    store, rows, cinv = _random_panel_inputs(3, Nl, M, Bl, Bp, n_cams)
+    view = store.transpose(2, 3)
+    assert not view.is_contiguous() and tpanel._landmark_blocks_dense(view)
+    assert not tpanel._landmark_blocks_dense(
+        store[:, :1].expand(Nl, M, Bp, Bl).transpose(2, 3))
+    got = build_panels(view, rows, cinv, Bl, Bp, n_cams)
+    want = build_panels(view.contiguous(), rows, cinv, Bl, Bp, n_cams)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 @pytest.fixture(scope="module")
 def ba(tmp_path_factory):
     cams, pts, obs = jds.make_ba_scene(n_cams=10, n_points=300, seed=5)
@@ -103,6 +166,29 @@ def test_panels_match_uniform_einsum(ba, monkeypatch):
     c0, Ut0, Wt0 = jsch._uniform_panels(jb)
     c1, Ut1, Wt1 = tsch._uniform_panels(tb)
     assert np.isnan(np.asarray(c0)).any()
+    assert np.array_equal(c1.numpy(), np.asarray(c0), equal_nan=True)
+    _close(Ut1, Ut0, 1e-12)
+    _close(Wt1, Wt0, 1e-10 * np.nanmax(np.abs(np.asarray(Wt0))))
+
+
+def test_uniform_panels_read_blocks_in_place(ba, monkeypatch):
+    """SchurSolver._uniform_panels hands K2 a view of the system's H_pl
+    blocks, no copy, and still matches the JAX einsum path at the tolerances
+    above (C^-1 bitwise, Ut 1e-12, Wt 1e-10 x scale)."""
+    ja, ta, jb, tb = ba
+    monkeypatch.setenv("SLAMPP_PALLAS_PANELS", "0")
+    seen = []
+
+    def spy(u4, *args):
+        seen.append(u4)
+        return build_panels(u4, *args)
+
+    monkeypatch.setattr(tschur_mod, "build_panels", spy)
+    c0, Ut0, Wt0 = JSchur(ja)._uniform_panels(jb)
+    c1, Ut1, Wt1 = TSchur(ta)._uniform_panels(tb)
+    (u4,) = seen
+    assert not u4.is_contiguous()
+    assert u4.untyped_storage().data_ptr() == tb.pl_blocks.untyped_storage().data_ptr()
     assert np.array_equal(c1.numpy(), np.asarray(c0), equal_nan=True)
     _close(Ut1, Ut0, 1e-12)
     _close(Wt1, Wt0, 1e-10 * np.nanmax(np.abs(np.asarray(Wt0))))
