@@ -4,35 +4,51 @@ Reference analogue: CLambdaOps::{Extend_Lambda, Refresh_Lambda,
 Collect_RightHandSide_Vector} with its reduction plans (reference
 include/slam/NonlinearSolver_Lambda_Base.h:113,524).
 
-The host symbolic phase is the JAX package's, in numpy, for its one case
-here (a mono BA problem of ``edge_p2c`` only): the camera/landmark class
-split, class slots, the uniform per-landmark ``[Nl, M]`` edge layout (each
-landmark's observations contiguous and padded with zero-information dummy
-edges), the pp/pl block keys, the diagonal block ids and the gauge anchor.  Lambda is stored partitioned and planar, as in the JAX package:
+The host symbolic phase is the JAX package's, in numpy: the class split
+(``schur_split``: the landmark class is split off only while the pose dims
+stay <= 20000, otherwise one mixed class that the MIS-Schur block Cholesky
+eliminates), class slots, padded tangent dims and their masks, the pp block
+keys of every edge's pose pairs (stored as upper pairs, a swap flag where an
+edge's slots run the other way, deduplicated with ``np.unique``), the pl
+keys, the diagonal block ids and the gauge anchor.  Lambda is stored
+partitioned and planar, as in the JAX package:
 
     [ H_pp  H_pl ]     H_pp : [Kpp, Bp*Bp] upper pairs
-    [  .    H_ll ]     H_pl : [Kpl, Bp*Bl]  (the uniform slots, dummies zero)
+    [  .    H_ll ]     H_pl : [Kpl, Bp*Bl]
                        H_ll : [Nl, Bl*Bl]   block diagonal
 
-The numeric phase covers ``edge_p2c`` through kernel K1
-(ops/p2c.py::p2c_edge_terms).  Landmark-side reductions are reshape-sums of
-the uniform layout; camera-side reductions are ``index_add_``.  Edge types
-without a hand-written path, and layouts other than the uniform one, raise
-``NotImplementedError`` (ROADMAP.md Queue 1 items 9 and 11), and so does a
-problem too large for the camera/landmark split (item 12).
+Two numeric paths:
+
+  * a mono BA problem of ``edge_p2c`` only, with the landmark class split
+    off, takes the uniform per-landmark ``[Nl, M]`` edge layout (each
+    landmark's observations contiguous, padded with zero-information dummy
+    edges) and kernel K1 (ops/p2c.py::p2c_edge_terms); landmark-side
+    reductions are reshape-sums, camera-side ones ``index_add_``;
+  * every other problem takes the flat (parse-order) layout and the generic
+    per-edge kernel: forward-mode Jacobians (``torch.func`` jvp, vmapped
+    over the tangent basis) through each vertex's ⊞ (the JAX
+    ``_make_kernel``), with IRLS robust weights and the expectation mode,
+    reduced with ``index_add_``.
+
+The diagonal pp and ll blocks are symmetrized after the reduction, so they
+are exactly symmetric whatever order the reductions summed in (a deep
+MIS-Schur elimination turns block asymmetry into an O(1) error, as the JAX
+package found in float32).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Tuple
+import dataclasses
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from slam_plus_plus_tpu_torch.config import default_dtype
+from slam_plus_plus_tpu_torch.config import SolverSettings, default_dtype
 from slam_plus_plus_tpu_torch.graph.system import GraphSystem
 from slam_plus_plus_tpu_torch.models.types import EDGE_TYPES, VERTEX_TYPES
 from slam_plus_plus_tpu_torch.ops.p2c import p2c_edge_terms
+from slam_plus_plus_tpu_torch.robust.losses import LOSSES
 
 
 class BlockSystem(NamedTuple):
@@ -49,9 +65,28 @@ class BlockSystem(NamedTuple):
     max_hdiag: torch.Tensor  # scalar
 
 
+@dataclasses.dataclass
+class _EdgePlan:
+    name: str
+    E: int
+    slot_types: Tuple[str, ...]
+    slot_local: List[np.ndarray]      # [arity] x [E] local index into type store
+    slot_cslot: List[np.ndarray]      # [arity] x [E] class-slot index
+    slot_class: Tuple[str, ...]       # 'p' | 'l'
+    # pp contributions: (slot_a, slot_b, seg_ids[E], swap[E])
+    pp_contribs: List[Tuple[int, int, np.ndarray, np.ndarray]]
+    # pl contributions: (p_slot, l_slot, seg_ids[E])
+    pl_contribs: List[Tuple[int, int, np.ndarray]]
+
+
 def _diag_cols(B: int, device) -> torch.Tensor:
     """Planar column ids of a B x B block's diagonal."""
     return torch.arange(B, device=device) * (B + 1)
+
+
+def _transpose_perm(B: int) -> List[int]:
+    """Planar column permutation that transposes a B x B block."""
+    return [i * B + j for j in range(B) for i in range(B)]
 
 
 class Assembler:
@@ -62,9 +97,11 @@ class Assembler:
     tensors in this assembler's dtype and device.
     """
 
-    def __init__(self, system: GraphSystem, *, device):
+    def __init__(self, system: GraphSystem, *, device,
+                 settings: Optional[SolverSettings] = None):
         self.device = torch.device(device)
         self.dtype = default_dtype(self.device)
+        self.settings = settings or SolverSettings()
         self._build_structure(system)
         self._build_device_plan(system)
 
@@ -73,24 +110,27 @@ class Assembler:
     # ------------------------------------------------------------------
 
     def _build_structure(self, system: GraphSystem) -> None:
-        if sorted(system.edge_stores) != ["edge_p2c"]:
-            raise NotImplementedError(
-                f"edge types {sorted(system.edge_stores)}: only edge_p2c has a "
-                "hand-written path; the generic jacfwd path is ROADMAP.md "
-                "Queue 1 item 9")
+        for name in system.edge_stores:
+            if name not in EDGE_TYPES:
+                raise NotImplementedError(f"edge type {name} is not ported")
         self.type_names = sorted(system.vertex_stores.keys())
-        # split off the landmark class only when the reduced system stays
-        # dense-solvable (the JAX package's schur_split="auto")
-        pose_dims = sum(
-            VERTEX_TYPES[t].tangent_dim * system.vertex_stores[t].n
-            for t in self.type_names
-            if VERTEX_TYPES[t].schur_class != "landmark")
-        if pose_dims > 20000:
-            raise NotImplementedError(
-                f"{pose_dims} pose dims: the unsplit system needs the MIS-Schur "
-                "block Cholesky, ROADMAP.md Queue 1 item 12")
+        split = self.settings.schur_split
+        any_landmark = any(
+            VERTEX_TYPES[t].schur_class == "landmark" for t in self.type_names)
+        if any_landmark and split == "off":
+            any_landmark = False  # single mixed class: MIS interleaves
+        elif any_landmark and split == "auto":
+            # split only while the reduced system stays dense-solvable;
+            # otherwise the mixed MIS elimination (landmarks are ideal
+            # low-degree candidates) avoids the all-landmarks-first fill
+            pose_dims = sum(
+                VERTEX_TYPES[t].tangent_dim * system.vertex_stores[t].n
+                for t in self.type_names
+                if VERTEX_TYPES[t].schur_class != "landmark")
+            if pose_dims > 20000:
+                any_landmark = False
         self.type_class: Dict[str, str] = {
-            t: "l" if VERTEX_TYPES[t].schur_class == "landmark" else "p"
+            t: "l" if (any_landmark and VERTEX_TYPES[t].schur_class == "landmark") else "p"
             for t in self.type_names}
 
         # class slots in global insertion order (the reference's block
@@ -105,56 +145,146 @@ class Assembler:
             order = p_order if self.type_class[tname] == "p" else l_order
             self.type_cslot[tname][li] = len(order)
             order.append((tname, li))
-        self.l_order = l_order
+        self.p_order, self.l_order = p_order, l_order
         self.Np, self.Nl = len(p_order), len(l_order)
-        # one type per class (cam, xyz), so no block has padded tangent dims
-        self.Bp, self.Bl = (VERTEX_TYPES[t].tangent_dim for t in ("cam", "xyz"))
 
-        # ---- the edge plan: slot 0 a camera, slot 1 a landmark ----------
-        store = system.edge_stores["edge_p2c"]
-        E = store.n
-        vids = store.vertex_ids[:E]
-        cam_local, pt_local = (
-            np.array([system.vertex_directory[v][1] for v in vids[:, k]],
-                     dtype=np.int64) for k in range(2))
-        cam_cslot = self.type_cslot["cam"][cam_local]
-        lc = self.type_cslot["xyz"][pt_local]
+        # mixed tangent dims in a class are padded to the class block size
+        p_dims = [VERTEX_TYPES[t].tangent_dim for t in self.type_names
+                  if self.type_class[t] == "p"]
+        l_dims = [VERTEX_TYPES[t].tangent_dim for t in self.type_names
+                  if self.type_class[t] == "l"]
+        self.Bp = max(p_dims) if p_dims else 1
+        self.Bl = max(l_dims) if l_dims else 1
+        self.p_mask = np.zeros((max(self.Np, 1), self.Bp))
+        for s, (t, _) in enumerate(p_order):
+            self.p_mask[s, :VERTEX_TYPES[t].tangent_dim] = 1.0
+        self.l_mask = np.zeros((max(self.Nl, 1), self.Bl))
+        for s, (t, _) in enumerate(l_order):
+            self.l_mask[s, :VERTEX_TYPES[t].tangent_dim] = 1.0
 
-        # ---- uniform per-landmark edge layout ---------------------------
-        # Sort + pad the edges into [Nl, M] groups (dummy edges carry zero
-        # information), so every landmark-side reduction is a reshape-sum
-        # and the Schur panels index by landmark.  The JAX package takes it
-        # when padding inflates the edge count by <= 1.5x (+8192).
-        counts = np.bincount(lc, minlength=self.Nl)
-        self.M = M = max(int(counts.max()), 1)
-        if self.Nl * M > 1.5 * E + 8192:
-            raise NotImplementedError(
-                f"padding {E} edges to {self.Nl} x {M} slots: the flat edge "
-                "layout is ROADMAP.md Queue 1 item 11")
-        starts = np.concatenate([[0], np.cumsum(counts)])
-        order = np.argsort(lc, kind="stable")
-        ranks = np.arange(E) - starts[lc[order]]
-        pad_idx = np.full(self.Nl * M, E, dtype=np.int64)
-        pad_idx[lc[order] * M + ranks] = order
-        self._pad_idx = pad_idx
-        # dummies take the slots of edge 0: the same camera as edge 0, so
-        # (landmark, camera) pairs can repeat
-        self._cam_local = np.concatenate([cam_local, cam_local[:1]])[pad_idx]
-        cam_slots = np.concatenate([cam_cslot, cam_cslot[:1]])[pad_idx]
+        # ---- per-edge-type slot maps ------------------------------------
+        raw_plans = []
+        for ename in sorted(system.edge_stores.keys()):
+            store = system.edge_stores[ename]
+            et = store.etype
+            vids = store.vertex_ids[:store.n]
+            slot_local, slot_cslot = [], []
+            for k in range(et.arity):
+                locs = np.array([system.vertex_directory[v][1] for v in vids[:, k]],
+                                dtype=np.int64)
+                slot_local.append(locs)
+                slot_cslot.append(self.type_cslot[et.vertex_types[k]][locs])
+            slot_class = tuple(self.type_class[t] for t in et.vertex_types)
+            raw_plans.append([ename, et, store.n, slot_local, slot_cslot, slot_class])
 
-        # pl blocks: the padded slots themselves, no dedup, zero blocks for
-        # dummies; the landmark of a slot is positional
-        self.pl_rows = cam_slots
-        self.pl_cols = np.repeat(np.arange(self.Nl, dtype=np.int64), M)
-        self.Kpl = self.Nl * M
-        self.pl_uniform = [dict(offset=0, M=M, rows=self.pl_rows, counts=counts)]
-        # pp blocks: a slot adds only to its camera's diagonal block, so the
-        # pattern is the Np diagonal blocks and a slot's pp block id is its
-        # camera slot
-        self.pp_rows = self.pp_cols = self.pp_diag_ids = np.arange(
-            self.Np, dtype=np.int64)
-        self.Kpp = self.Np
-        self._cam_slots = cam_slots
+        # ---- uniform per-landmark layout: the K1 path --------------------
+        # Sort + pad edge_p2c's edges into [Nl, M] groups (dummy edges carry
+        # zero information), so every landmark-side reduction is a
+        # reshape-sum and the Schur panels index by landmark.  The JAX
+        # package takes it when padding inflates the edge count by <= 1.5x
+        # (+8192); the port takes it for mono BA only, where K1 and the
+        # uniform Schur solve consume it.
+        self.pl_uniform = None
+        self._pad_idx = None
+        if ([rp[0] for rp in raw_plans] == ["edge_p2c"] and self.Nl
+                and raw_plans[0][5] == ("p", "l")):
+            ename, et, E, slot_local, slot_cslot, slot_class = raw_plans[0]
+            lc = slot_cslot[1]
+            counts = np.bincount(lc, minlength=self.Nl)
+            M = max(int(counts.max()), 1)
+            if self.Nl * M <= 1.5 * E + 8192:
+                starts = np.concatenate([[0], np.cumsum(counts)])
+                order = np.argsort(lc, kind="stable")
+                ranks = np.arange(E) - starts[lc[order]]
+                pad_idx = np.full(self.Nl * M, E, dtype=np.int64)
+                pad_idx[lc[order] * M + ranks] = order
+                self._pad_idx, self.M, self._uniform_counts = pad_idx, M, counts
+                # dummies take the slots of edge 0, so (landmark, camera)
+                # pairs can repeat; the landmark slot is positional
+                raw_plans[0][2] = self.Nl * M
+                raw_plans[0][3] = [np.concatenate([a, a[:1]])[pad_idx] for a in slot_local]
+                raw_plans[0][4] = [np.concatenate([a, a[:1]])[pad_idx] for a in slot_cslot]
+                raw_plans[0][4][1] = np.repeat(np.arange(self.Nl, dtype=np.int64), M)
+
+        # ---- global pp / pl keys (order defines contribution order) ------
+        Np, Nl1 = self.Np, max(self.Nl, 1)
+        pp_contrib_keys: List[np.ndarray] = []
+        pl_contrib_keys: List[np.ndarray] = []
+        plan_meta = []
+        for ename, et, E, slot_local, slot_cslot, slot_class in raw_plans:
+            pp_list, pl_list = [], []
+            for a in range(et.arity):
+                for b in range(a, et.arity):
+                    ca, cb = slot_class[a], slot_class[b]
+                    ia, ib = slot_cslot[a], slot_cslot[b]
+                    if ca == "p" and cb == "p":
+                        swap = ia > ib
+                        keys = np.where(swap, ib * Np + ia, ia * Np + ib)
+                        pp_list.append((a, b, keys, swap))
+                        pp_contrib_keys.append(keys)
+                    elif ca == "l" and cb == "l":
+                        if a != b:
+                            raise NotImplementedError(
+                                f"edge {ename}: landmark-landmark coupling unsupported")
+                    else:
+                        # orient primary x landmark
+                        pa, lb = (a, b) if ca == "p" else (b, a)
+                        keys = slot_cslot[pa] * Nl1 + slot_cslot[lb]
+                        pl_list.append((pa, lb, keys))
+                        pl_contrib_keys.append(keys)
+            plan_meta.append((ename, et, E, slot_local, slot_cslot, slot_class,
+                              pp_list, pl_list))
+
+        all_pp = (np.concatenate(pp_contrib_keys) if pp_contrib_keys
+                  else np.zeros(0, dtype=np.int64))
+        uniq_pp, inv_pp = np.unique(all_pp, return_inverse=True)
+
+        if self._pad_idx is not None:
+            # uniform layout: the padded slots ARE the pl blocks, in
+            # contribution order — no dedup, zero blocks for dummies
+            (keys,) = pl_contrib_keys
+            self.pl_rows = (keys // Nl1).astype(np.int64)
+            self.pl_cols = (keys % Nl1).astype(np.int64)
+            self.Kpl = len(keys)
+            inv_pl = np.arange(max(self.Kpl, 1), dtype=np.int64)
+            self.pl_uniform = [dict(offset=0, M=self.M, rows=self.pl_rows,
+                                    counts=self._uniform_counts)]
+        else:
+            all_pl = (np.concatenate(pl_contrib_keys) if pl_contrib_keys
+                      else np.zeros(0, dtype=np.int64))
+            uniq_pl, inv_pl = np.unique(all_pl, return_inverse=True)
+            self.pl_rows = (uniq_pl // Nl1).astype(np.int64)
+            self.pl_cols = (uniq_pl % Nl1).astype(np.int64)
+            self.Kpl = len(uniq_pl)
+
+        # diagonal (p, p) pair ids: every primary vertex gets a diagonal
+        # block (vertices with no pp contribution extend the pattern)
+        diag_keys = np.arange(Np, dtype=np.int64) * Np + np.arange(Np)
+        pos = np.searchsorted(uniq_pp, diag_keys)
+        ok = (pos < len(uniq_pp)) & (uniq_pp[np.minimum(pos, len(uniq_pp) - 1)] == diag_keys)
+        if not ok.all() and Np:
+            uniq_pp = np.sort(np.concatenate([uniq_pp, diag_keys[~ok]]))
+            inv_pp = np.searchsorted(uniq_pp, all_pp)
+            pos = np.searchsorted(uniq_pp, diag_keys)
+        self.pp_rows = (uniq_pp // max(Np, 1)).astype(np.int64)
+        self.pp_cols = (uniq_pp % max(Np, 1)).astype(np.int64)
+        self.Kpp = len(uniq_pp)
+        self.pp_diag_ids = pos.astype(np.int64)
+
+        # distribute the inverse-mapped segment ids back to the plans
+        self.plans: List[_EdgePlan] = []
+        off_pp = off_pl = 0
+        for ename, et, E, slot_local, slot_cslot, slot_class, pp_list, pl_list in plan_meta:
+            pp_contribs = []
+            for (a, b, _keys, swap) in pp_list:
+                pp_contribs.append((a, b, inv_pp[off_pp:off_pp + E].astype(np.int64), swap))
+                off_pp += E
+            pl_contribs = []
+            for (pa, lb, _keys) in pl_list:
+                pl_contribs.append((pa, lb, inv_pl[off_pl:off_pl + E].astype(np.int64)))
+                off_pl += E
+            self.plans.append(_EdgePlan(ename, E, et.vertex_types, slot_local,
+                                        slot_cslot, slot_class, pp_contribs, pl_contribs))
 
         # unary gauge anchor: identity on the first vertex of the first edge
         # (reference CBasicUnaryFactorFactory, include/slam/FlatSystem.h:432-470)
@@ -163,7 +293,8 @@ class Assembler:
             first_et, first_li = system._edge_insert_log[0]
             first_vid = int(system.edge_stores[first_et].vertex_ids[first_li][0])
             tname, li = system.vertex_directory[first_vid]
-            self.anchor_cslot = int(self.type_cslot[tname][li])
+            if self.type_class[tname] == "p":
+                self.anchor_cslot = int(self.type_cslot[tname][li])
 
     # ------------------------------------------------------------------
     # device plan
@@ -175,25 +306,110 @@ class Assembler:
         def i64(x):
             return torch.as_tensor(np.asarray(x, dtype=np.int64), device=dev)
 
-        store = system.edge_stores["edge_p2c"]
-        pad_idx = self._pad_idx
-        # dummy edges: zero information, zero measurement
-        z = np.concatenate([store.measurements[:store.n], np.zeros((1, 2))])[pad_idx]
-        info = np.concatenate([store.informations[:store.n],
-                               np.zeros((1, 2, 2))])[pad_idx]
-        self.edge_data = dict(
-            z_t=torch.as_tensor(z.T.copy(), dtype=dt, device=dev),               # [2, E]
-            info_t=torch.as_tensor(info.reshape(-1, 4).T.copy(), dtype=dt, device=dev),  # [4, E]
-            cam_local=i64(self._cam_local),
-            cam_cslot=i64(self._cam_slots),
-        )
-        # positional landmark -> type-local row of the xyz store
-        self._l_local_map = i64([li for _tn, li in self.l_order])
+        def f(x):
+            return torch.as_tensor(np.asarray(x, dtype=np.float64), dtype=dt, device=dev)
 
+        self.edge_data = {}
+        for plan in self.plans:
+            store = system.edge_stores[plan.name]
+            z = store.measurements[:store.n]
+            info = store.informations[:store.n]
+            if self._pad_idx is not None:
+                # dummy edges: zero information, zero measurement
+                z = np.concatenate([z, np.zeros_like(z[:1])])[self._pad_idx]
+                info = np.concatenate([info, np.zeros_like(info[:1])])[self._pad_idx]
+            self.edge_data[plan.name] = dict(
+                z=f(z), info=f(info),
+                slot_local=tuple(i64(x) for x in plan.slot_local),
+                slot_cslot=tuple(i64(x) for x in plan.slot_cslot),
+                pp_seg=tuple(i64(s) for (_a, _b, s, _w) in plan.pp_contribs),
+                pp_swap=tuple(torch.as_tensor(w, device=dev)
+                              for (_a, _b, _s, w) in plan.pp_contribs),
+                pl_seg=tuple(i64(s) for (_a, _b, s) in plan.pl_contribs),
+            )
+        if self._pad_idx is not None:
+            # K1 takes the [d, E] layout; the landmark slot is positional
+            d = self.edge_data["edge_p2c"]
+            d["z_t"] = d["z"].T.contiguous()
+            d["info_t"] = d["info"].reshape(-1, 4).T.contiguous()
+            self._l_local_map = i64([li for _tn, li in self.l_order])
+
+        self.p_mask_dev = f(self.p_mask)
+        self.l_mask_dev = f(self.l_mask)
         self.pp_diag_ids_dev = i64(self.pp_diag_ids)
         self._p_diag_cols = _diag_cols(self.Bp, dev)
+        self._l_diag_cols = _diag_cols(self.Bl, dev)
+        self._p_tperm = torch.as_tensor(_transpose_perm(self.Bp), device=dev)
+        self._l_tperm = torch.as_tensor(_transpose_perm(self.Bl), device=dev)
         self.state_meta = {t: (self.type_class[t], i64(self.type_cslot[t]))
                            for t in self.type_names}
+        self._kernels: Dict[str, Callable] = {
+            plan.name: self._make_kernel(plan) for plan in self.plans
+            if self._pad_idx is None}
+
+    def _make_kernel(self, plan: _EdgePlan):
+        """Per-edge-type kernel over a batch of E edges: the residual, its
+        Jacobian per slot (forward mode through the vertex's ⊞ at delta = 0,
+        one tangent basis vector per ``vmap`` lane, the edges batched inside
+        — the JAX package's vmap of jacfwd, with the two maps swapped), the
+        IRLS weight, and the planar JᵀΩJ blocks and gradients of the plan."""
+        et = EDGE_TYPES[plan.name]
+        vts = [VERTEX_TYPES[t] for t in et.vertex_types]
+        Bp, Bl = self.Bp, self.Bl
+        loss_fn, loss_scale = LOSSES[et.robust_loss], et.robust_scale
+        # reference parity mode: the Jacobian of the expectation h, negated
+        # to keep the dr/ddelta sign convention (the reference
+        # differentiates h, not r, SE3_Types.h:265-290)
+        split = et.expectation is not None
+
+        def jacobians(states, z):
+            jacs = []
+            for k, vt in enumerate(vts):
+                def fk(delta, k=k, vt=vt):
+                    st = list(states)
+                    st[k] = vt.boxplus(st[k], delta)
+                    return et.expectation(tuple(st)) if split else et.residual(tuple(st), z)
+
+                E, d = z.shape[0], vt.tangent_dim
+                zero = torch.zeros((E, d), dtype=z.dtype, device=z.device)
+                basis = torch.eye(d, dtype=z.dtype, device=z.device)[:, None, :].expand(d, E, d)
+                cols = torch.func.vmap(
+                    lambda t: torch.func.jvp(fk, (zero,), (t,))[1])(basis)   # [d, E, r]
+                J = cols.permute(1, 2, 0)                                     # [E, r, d]
+                jacs.append(-J if split else J)
+            return jacs
+
+        def kernel(states, z, info):
+            r = et.error(z, et.expectation(states)) if split else et.residual(states, z)
+            jacs = jacobians(states, z)
+            chi2_e = (r * (info @ r[:, :, None])[:, :, 0]).sum(-1)
+            info_w = info
+            if et.robust:
+                # w = loss(|e| / scale) scales the information, re-evaluated
+                # at every linearization — IRLS (SE3_Types.h:128,
+                # RobustUtils.h:368-440, NonlinearSolver_Lambda.h:455)
+                w = loss_fn(torch.linalg.vector_norm(r, dim=-1) / loss_scale)
+                info_w = info * w[:, None, None]
+            padded = []
+            for k, J in enumerate(jacs):
+                Bc = Bp if plan.slot_class[k] == "p" else Bl
+                padded.append(torch.nn.functional.pad(J, (0, Bc - J.shape[-1])))
+            lam_r = info_w @ r[:, :, None]                                    # [E, r, 1]
+            JtI = [J.mT @ info_w for J in padded]                             # [E, Bc, r]
+            hdiag_e = torch.zeros_like(chi2_e)
+            for k, J in enumerate(padded):
+                hdiag_e = torch.maximum(hdiag_e, (JtI[k] * J.mT).sum(-1).amax(-1))
+            gs = tuple(-(J.mT @ lam_r)[:, :, 0] for J in padded)
+            E = z.shape[0]
+            Hpp = tuple((JtI[a] @ padded[b]).reshape(E, -1)
+                        for (a, b, _s, _w) in plan.pp_contribs)
+            Hll = tuple((JtI[k] @ padded[k]).reshape(E, -1)
+                        for k in range(len(vts)) if plan.slot_class[k] == "l")
+            Hpl = tuple((JtI[pa] @ padded[lb]).reshape(E, -1)
+                        for (pa, lb, _s) in plan.pl_contribs)
+            return chi2_e, hdiag_e, gs, Hpp, Hll, Hpl
+
+        return kernel
 
     # ------------------------------------------------------------------
     # states
@@ -221,20 +437,20 @@ class Assembler:
     # numeric phase
     # ------------------------------------------------------------------
 
-    def _gather(self, states):
-        """Per-slot cam [11, E] and point [3, E] states.  The landmark slot is
-        positional in the uniform layout: one [Nl] gather, broadcast over M."""
-        cam_t = states["cam"].T.contiguous().index_select(1, self.edge_data["cam_local"])
+    def _gather_uniform(self, states):
+        """K1 inputs: per-slot cam [11, E] and point [3, E] states.  The
+        landmark slot is positional: one [Nl] gather, broadcast over M."""
+        d = self.edge_data["edge_p2c"]
+        cam_t = states["cam"].T.contiguous().index_select(1, d["slot_local"][0])
         pts = states["xyz"].index_select(0, self._l_local_map)          # [Nl, 3]
         pt_t = pts.T[:, :, None].expand(3, self.Nl, self.M).reshape(3, -1)
         return cam_t, pt_t
 
-    def _edge_sums(self, states):
-        """Raw reductions of the per-edge terms:
-        (pp, pl, ll, eta_p, eta_l, chi2, max_hdiag), all planar."""
-        d = self.edge_data
+    def _edge_sums_uniform(self, states):
+        """Raw reductions of K1's per-edge terms in the uniform layout."""
+        d = self.edge_data["edge_p2c"]
         Np, Nl, M, Bp, Bl = self.Np, self.Nl, self.M, self.Bp, self.Bl
-        cam_t, pt_t = self._gather(states)
+        cam_t, pt_t = self._gather_uniform(states)
         chi2_e, hdiag_e, g_cam, g_pt, hcc, hcp, hpp = p2c_edge_terms(
             cam_t, pt_t, d["z_t"], d["info_t"])
         chi2 = chi2_e.sum()
@@ -244,34 +460,93 @@ class Assembler:
         ll = hpp.reshape(Bl * Bl, Nl, M).sum(-1).T.contiguous()
         # camera side: index_add_ over each slot's camera / pp block
         eta_p = torch.zeros((Bp, Np), dtype=self.dtype, device=self.device)
-        eta_p.index_add_(1, d["cam_cslot"], g_cam)
+        eta_p.index_add_(1, d["slot_cslot"][0], g_cam)
         pp = torch.zeros((Bp * Bp, self.Kpp), dtype=self.dtype, device=self.device)
-        pp.index_add_(1, d["cam_cslot"], hcc)      # pp block id = camera slot
+        pp.index_add_(1, d["pp_seg"][0], hcc)
         # the uniform slots are the pl blocks (identity reduction)
         pl = hcp.T.contiguous()
         return (pp.T.contiguous(), pl, ll, eta_p.T.contiguous(), eta_l, chi2,
                 max_hdiag)
 
+    def _edge_sums_flat(self, states):
+        """Raw reductions of the generic kernels' per-edge terms: index_add_
+        onto the class slots and the pp/pl block ids, swapped pp pairs
+        transposed first."""
+        dt, dev = self.dtype, self.device
+        Bp, Bl = self.Bp, self.Bl
+        Np, Nl = max(self.Np, 1), max(self.Nl, 1)
+        pp = torch.zeros((self.Kpp, Bp * Bp), dtype=dt, device=dev)
+        pl = torch.zeros((max(self.Kpl, 1), Bp * Bl), dtype=dt, device=dev)
+        ll = torch.zeros((Nl, Bl * Bl), dtype=dt, device=dev)
+        eta_p = torch.zeros((Np, Bp), dtype=dt, device=dev)
+        eta_l = torch.zeros((Nl, Bl), dtype=dt, device=dev)
+        chi2 = torch.zeros((), dtype=dt, device=dev)
+        max_hdiag = torch.zeros((), dtype=dt, device=dev)
+        for plan in self.plans:
+            data = self.edge_data[plan.name]
+            gathered = tuple(states[t].index_select(0, data["slot_local"][k])
+                             for k, t in enumerate(plan.slot_types))
+            chi2_e, hdiag_e, gs, Hpp, Hll, Hpl = self._kernels[plan.name](
+                gathered, data["z"], data["info"])
+            chi2 = chi2 + chi2_e.sum()
+            max_hdiag = torch.maximum(max_hdiag, hdiag_e.amax())
+            li = 0
+            for k in range(len(plan.slot_types)):
+                cs = data["slot_cslot"][k]
+                if plan.slot_class[k] == "p":
+                    eta_p.index_add_(0, cs, gs[k])
+                else:
+                    eta_l.index_add_(0, cs, gs[k])
+                    ll.index_add_(0, cs, Hll[li])
+                    li += 1
+            for ci, (a, b, _s, _w) in enumerate(plan.pp_contribs):
+                H = Hpp[ci]
+                if a != b:
+                    swap = data["pp_swap"][ci]
+                    H = torch.where(swap[:, None], H[:, self._p_tperm], H)
+                pp.index_add_(0, data["pp_seg"][ci], H)
+            for ci in range(len(plan.pl_contribs)):
+                pl.index_add_(0, data["pl_seg"][ci], Hpl[ci])
+        return pp, pl, ll, eta_p, eta_l, chi2, max_hdiag
+
+    def _edge_sums(self, states):
+        """Raw reductions (pp, pl, ll, eta_p, eta_l, chi2, max_hdiag), all
+        planar."""
+        if self._pad_idx is not None:
+            return self._edge_sums_uniform(states)
+        return self._edge_sums_flat(states)
+
     def _finalize(self, pp, pl, ll, eta_p, eta_l, chi2, max_hdiag) -> BlockSystem:
-        """The gauge anchor: identity added to the anchor camera's diagonal
-        block of the freshly reduced pp, in place.  (No block has padded
-        tangent dims, so the JAX package's unit pivots for them add zero.)"""
+        """Symmetrize the diagonal blocks, put unit pivots on padded tangent
+        dims (keeps lambda SPD and their dx exactly 0) and add the gauge
+        anchor (identity on the first edge's first vertex, masked to its
+        real dims) — in place on the freshly reduced blocks."""
+        ids = self.pp_diag_ids_dev
+        diag = pp.index_select(0, ids)
+        pp[ids] = 0.5 * (diag + diag[:, self._p_tperm])
+        pp[ids[:, None], self._p_diag_cols] += 1.0 - self.p_mask_dev
+        if self.Nl:
+            ll.copy_(0.5 * (ll + ll[:, self._l_tperm]))
+            ll[:, self._l_diag_cols] += 1.0 - self.l_mask_dev
         if self.anchor_cslot is not None:
             aid = int(self.pp_diag_ids[self.anchor_cslot])
-            pp[aid, self._p_diag_cols] += 1.0
+            pp[aid, self._p_diag_cols] += self.p_mask_dev[self.anchor_cslot]
         return BlockSystem(pp, pl, ll, eta_p, eta_l, chi2, max_hdiag)
 
     def assemble(self, states) -> BlockSystem:
         return self._finalize(*self._edge_sums(states))
 
     def chi2(self, states) -> torch.Tensor:
-        """Total chi2 through the edge type's own residual (the generic
-        quaternion path, as the JAX package's _chi2_impl), not the kernel."""
-        cam_t, pt_t = self._gather(states)
-        et = EDGE_TYPES["edge_p2c"]
-        r = et.residual((cam_t.T, pt_t.T), self.edge_data["z_t"].T)     # [E, 2]
-        info = self.edge_data["info_t"].T.reshape(-1, 2, 2)
-        return torch.einsum("ei,eij,ej->", r, info, r)
+        """Total chi2 through each edge type's own batched residual (for
+        edge_p2c the generic quaternion path, not K1)."""
+        chi2 = torch.zeros((), dtype=self.dtype, device=self.device)
+        for plan in self.plans:
+            data = self.edge_data[plan.name]
+            gathered = tuple(states[t].index_select(0, data["slot_local"][k])
+                             for k, t in enumerate(plan.slot_types))
+            r = EDGE_TYPES[plan.name].residual(gathered, data["z"])
+            chi2 = chi2 + torch.einsum("ei,eij,ej->", r, data["info"], r)
+        return chi2
 
     def update(self, states, dx_p, dx_l):
         """x ⊞ dx per vertex type (the JAX _update_impl): dx_p [Np, Bp],

@@ -10,14 +10,37 @@ The device is always explicit: every entry point takes a ``device`` and
 there is no fallback from one device to another.  Nothing here sets a global
 default dtype, because tests share worker processes.
 
-The JAX package's SolverConfig selects among solvers, linear backends, class
-splits and edge layouts; the port has one of each so far, so it has no
-settings object yet.
+Of the JAX package's SolverConfig the port carries the two fields that have
+a second value here, in ``SolverSettings``: the linear backend and the
+landmark-class split.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverSettings:
+    """linear_solver: "auto" picks as the JAX package does (Schur when a
+    landmark class is split off, dense direct for small float64 systems,
+    else the MIS-Schur block Cholesky); "block_cholesky" takes the block
+    Cholesky in place of the dense direct factor.  schur_split: "auto"
+    splits the landmark class off when the pose dims stay <= 20000; "on"
+    always, "off" never."""
+
+    linear_solver: str = "auto"
+    schur_split: str = "auto"
+
+    def __post_init__(self):
+        if self.linear_solver not in ("auto", "block_cholesky"):
+            raise ValueError(f"linear_solver {self.linear_solver!r}: the port has "
+                             "auto and block_cholesky (the host scipy oracle is "
+                             "ROADMAP.md Queue 1 item 15)")
+        if self.schur_split not in ("auto", "on", "off"):
+            raise ValueError(f"schur_split {self.schur_split!r}: auto, on or off")
 
 
 def default_dtype(device) -> torch.dtype:

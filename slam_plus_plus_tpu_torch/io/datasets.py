@@ -1,13 +1,335 @@
-"""Synthetic bundle-adjustment scene (port of the BA generator in
-slam_plus_plus_tpu/io/datasets.py).
+"""Synthetic datasets (port of the generators in
+slam_plus_plus_tpu/io/datasets.py): a Manhattan-world 2D pose graph
+(manhattanOlson analogue), a large city 2D pose graph (city10k / w100K
+class), a 3D sphere walk (sphere2500 analogue), a 2D landmark dataset
+(cityTrees analogue) and a BA scene (venice analogue).
 
 Pure numpy, seeded: the same arguments give the same file, byte for byte,
-as the JAX package's generator.
+as the JAX package's generators.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def _wrap(a):
+    return np.arctan2(np.sin(a), np.cos(a))
+
+
+def make_manhattan_2d(n_poses=600, step=1.0, trans_noise=0.05, rot_noise=0.02,
+                      loop_prob=0.2, loop_radius=2.0, seed=0):
+    """Manhattan-world 2D pose graph: grid random walk + noisy odometry +
+    nearest-neighbor loop closures.  Returns (gt_poses [N,3], edges).
+
+    edges: list of (i, j, z[3], info[3,3]).
+    """
+    rng = np.random.default_rng(seed)
+    poses = np.zeros((n_poses, 3))
+    heading = 0.0
+    pos = np.zeros(2)
+    for i in range(1, n_poses):
+        if rng.random() < 0.25:
+            heading = _wrap(heading + rng.choice([-1, 1]) * np.pi / 2)
+        pos = pos + step * np.array([np.cos(heading), np.sin(heading)])
+        poses[i] = [pos[0], pos[1], heading]
+
+    info_t = 1.0 / (trans_noise ** 2)
+    info_r = 1.0 / (rot_noise ** 2)
+    info = np.diag([info_t, info_t, info_r])
+
+    def rel(a, b):
+        c, s = np.cos(a[2]), np.sin(a[2])
+        d = b[:2] - a[:2]
+        return np.array([c * d[0] + s * d[1], -s * d[0] + c * d[1],
+                         _wrap(b[2] - a[2])])
+
+    edges = []
+    for i in range(n_poses - 1):
+        z = rel(poses[i], poses[i + 1])
+        z[:2] += rng.normal(0, trans_noise, 2)
+        z[2] = _wrap(z[2] + rng.normal(0, rot_noise))
+        edges.append((i, i + 1, z, info))
+
+    # loop closures to previously visited nearby poses
+    for j in range(10, n_poses):
+        if rng.random() >= loop_prob:
+            continue
+        d2 = np.sum((poses[:j - 5, :2] - poses[j, :2]) ** 2, axis=1)
+        i = int(np.argmin(d2))
+        if d2[i] < loop_radius ** 2:
+            z = rel(poses[i], poses[j])
+            z[:2] += rng.normal(0, trans_noise, 2)
+            z[2] = _wrap(z[2] + rng.normal(0, rot_noise))
+            edges.append((i, j, z, info))
+    return poses, edges
+
+
+def make_city_2d(n_poses=10000, step=1.0, trans_noise=0.05, rot_noise=0.02,
+                 loop_prob=0.25, loop_radius=1.5, seed=0):
+    """Large-scale 2D pose graph (city10k/w100K class): grid random walk
+    with O(n) spatially-bucketed loop-closure search.  Returns
+    (gt_poses [N,3], edges) like make_manhattan_2d."""
+    rng = np.random.default_rng(seed)
+    poses = np.zeros((n_poses, 3))
+    heading = 0.0
+    pos = np.zeros(2)
+    # confine the walk to a box so revisits (closures) happen at any scale
+    box = max(20.0, 1.2 * np.sqrt(n_poses))
+    for i in range(1, n_poses):
+        if rng.random() < 0.25:
+            heading = _wrap(heading + rng.choice([-1, 1]) * np.pi / 2)
+        nxt = pos + step * np.array([np.cos(heading), np.sin(heading)])
+        if np.abs(nxt).max() > box:
+            heading = _wrap(heading + np.pi / 2)
+            nxt = pos + step * np.array([np.cos(heading), np.sin(heading)])
+        pos = nxt
+        poses[i] = [pos[0], pos[1], heading]
+
+    info_t = 1.0 / (trans_noise ** 2)
+    info_r = 1.0 / (rot_noise ** 2)
+    info = np.diag([info_t, info_t, info_r])
+
+    def rel(a, b):
+        c, s = np.cos(a[2]), np.sin(a[2])
+        d = b[:2] - a[:2]
+        return np.array([c * d[0] + s * d[1], -s * d[0] + c * d[1],
+                         _wrap(b[2] - a[2])])
+
+    edges = []
+    for i in range(n_poses - 1):
+        z = rel(poses[i], poses[i + 1])
+        z[:2] += rng.normal(0, trans_noise, 2)
+        z[2] = _wrap(z[2] + rng.normal(0, rot_noise))
+        edges.append((i, i + 1, z, info))
+
+    # closures: spatial hash of cell -> most recent pose seen there
+    cell_last = {}
+    for j in range(n_poses):
+        key = (int(np.floor(poses[j, 0] / loop_radius)),
+               int(np.floor(poses[j, 1] / loop_radius)))
+        prev = cell_last.get(key)
+        if (prev is not None and j - prev > 10 and
+                rng.random() < loop_prob):
+            i = prev
+            z = rel(poses[i], poses[j])
+            z[:2] += rng.normal(0, trans_noise, 2)
+            z[2] = _wrap(z[2] + rng.normal(0, rot_noise))
+            edges.append((i, j, z, info))
+        cell_last[key] = j
+    return poses, edges
+
+
+def write_g2o_2d(path, edges, poses=None):
+    """Write a SLAM++-dialect 2D file (EDGE2 with upper-tri info).
+
+    Edges are written in chronological order (sorted by max vertex id) so
+    loop closures interleave with odometry — required for incremental
+    replay to behave like the real datasets."""
+    edges = sorted(edges, key=lambda e: max(e[0], e[1]))
+    with open(path, "w") as f:
+        if poses is not None:
+            for i, p in enumerate(poses):
+                f.write(f"VERTEX2 {i} {p[0]:.10f} {p[1]:.10f} {p[2]:.10f}\n")
+        for (i, j, z, info) in edges:
+            ut = [info[0, 0], info[0, 1], info[0, 2], info[1, 1], info[1, 2],
+                  info[2, 2]]
+            f.write(f"EDGE2 {i} {j} " + " ".join(f"{v:.10f}" for v in z) + " " +
+                    " ".join(f"{v:.10f}" for v in ut) + "\n")
+
+
+def make_sphere_3d(n_poses=300, radius=10.0, trans_noise=0.02, rot_noise=0.01,
+                   seed=0):
+    """3D sphere pose graph (sphere2500 analogue): spiral walk on a sphere
+    with odometry + vertical loop closures.  Returns (gt [N,6] tRs-free
+    [t, axis-angle], edges)."""
+    rng = np.random.default_rng(seed)
+
+    def aa_to_R(aa):
+        th = np.linalg.norm(aa)
+        if th < 1e-12:
+            return np.eye(3)
+        k = aa / th
+        K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+        return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * (K @ K)
+
+    def R_to_aa(R):
+        tr = np.trace(R)
+        c = np.clip((tr - 1) / 2, -1, 1)
+        th = np.arccos(c)
+        if th < 1e-9:
+            return np.zeros(3)
+        v = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+        return v * th / (2 * np.sin(th))
+
+    n_rings = max(6, int(np.sqrt(n_poses)))
+    per_ring = n_poses // n_rings
+    poses_R, poses_t = [], []
+    for r in range(n_rings):
+        phi = np.pi * (r + 0.5) / n_rings
+        for k in range(per_ring):
+            theta = 2 * np.pi * k / per_ring
+            t = radius * np.array([np.sin(phi) * np.cos(theta),
+                                   np.sin(phi) * np.sin(theta), np.cos(phi)])
+            # heading along the ring
+            fwd = np.array([-np.sin(theta), np.cos(theta), 0.0])
+            up = t / np.linalg.norm(t)
+            left = np.cross(up, fwd)
+            left /= np.linalg.norm(left) + 1e-12
+            fwd = np.cross(left, up)
+            R = np.stack([fwd, left, up], axis=1)
+            poses_R.append(R)
+            poses_t.append(t)
+    N = len(poses_t)
+    gt = np.zeros((N, 6))
+    for i in range(N):
+        gt[i, :3] = poses_t[i]
+        gt[i, 3:] = R_to_aa(poses_R[i])
+
+    def rel(i, j):
+        Ri, ti = poses_R[i], poses_t[i]
+        Rj, tj = poses_R[j], poses_t[j]
+        Rrel = Ri.T @ Rj
+        trel = Ri.T @ (tj - ti)
+        return trel, Rrel
+
+    info = np.diag([1.0 / trans_noise ** 2] * 3 + [1.0 / rot_noise ** 2] * 3)
+    edges = []
+
+    def noisy_edge(i, j):
+        trel, Rrel = rel(i, j)
+        trel = trel + rng.normal(0, trans_noise, 3)
+        Rn = aa_to_R(rng.normal(0, rot_noise, 3))
+        z = np.concatenate([trel, R_to_aa(Rrel @ Rn)])
+        return (i, j, z, info)
+
+    for i in range(N - 1):
+        edges.append(noisy_edge(i, i + 1))
+    # dense loop closures (the real sphere2500 has several closures per pose;
+    # sparse closures leave the gauge weakly constrained and make batch GN
+    # unstable — the reference binary diverges on such graphs)
+    for j in range(per_ring, N):
+        edges.append(noisy_edge(j - per_ring, j))        # pose below
+        if j - per_ring - 1 >= 0:
+            edges.append(noisy_edge(j - per_ring - 1, j))  # diagonal below
+    for j in range(2, N):
+        if j % 3 == 0:
+            edges.append(noisy_edge(j - 2, j))           # in-ring skip
+    return gt, edges
+
+
+def _aa_to_rpy(aa):
+    """Axis-angle -> [roll, pitch, yaw] with R = Rz(yaw) Ry(pitch) Rx(roll),
+    the reference's VERTEX3 file convention
+    (reference include/slam_app/ParsePrimitives.h:782-793)."""
+    th = np.linalg.norm(aa)
+    if th < 1e-12:
+        return np.zeros(3)
+    k = aa / th
+    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    R = np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * (K @ K)
+    roll = np.arctan2(R[2, 1], R[2, 2])
+    pitch = -np.arcsin(np.clip(R[2, 0], -1, 1))
+    yaw = np.arctan2(R[1, 0], R[0, 0])
+    return np.array([roll, pitch, yaw])
+
+
+def write_g2o_3d(path, edges, poses=None):
+    """Write EDGE3:AXISANGLE dialect (upper-tri 6x6 info); VERTEX3 rotation
+    is written as RPY per the reference's parse convention.  Edges are
+    chronological (sorted by max vertex id) for incremental replay."""
+    edges = sorted(edges, key=lambda e: max(e[0], e[1]))
+    with open(path, "w") as f:
+        if poses is not None:
+            for i, p in enumerate(poses):
+                rpy = _aa_to_rpy(np.asarray(p[3:6]))
+                v = np.concatenate([p[:3], rpy])
+                f.write(f"VERTEX3 {i} " + " ".join(f"{x:.10f}" for x in v) + "\n")
+        for (i, j, z, info) in edges:
+            ut = [info[a, b] for a in range(6) for b in range(a, 6)]
+            f.write(f"EDGE3:AXISANGLE {i} {j} " +
+                    " ".join(f"{v:.10f}" for v in z) + " " +
+                    " ".join(f"{v:.10f}" for v in ut) + "\n")
+
+
+def make_landmark_2d(n_poses=300, n_landmarks=120, world=25.0, obs_radius=6.0,
+                     trans_noise=0.05, rot_noise=0.02, obs_noise=0.03, seed=0):
+    """2D pose graph + XY landmark observations (cityTrees analogue).
+
+    Vertex ids are assigned in order of first use (poses and landmarks share
+    one id space), as the reference's flat system requires ("vertices must be
+    accessed in incremental manner").  Returns (gt_poses, gt_landmarks,
+    pose_edges, lm_edges) where edges already carry the final ids;
+    lm_edges carry XY measurements (converted to polar by the parser rules).
+    """
+    rng = np.random.default_rng(seed)
+    poses, raw_pose_edges = make_manhattan_2d(n_poses, trans_noise=trans_noise,
+                                              rot_noise=rot_noise, loop_prob=0.05,
+                                              seed=seed)
+    scale = world / max(np.abs(poses[:, :2]).max(), 1.0)
+    poses[:, :2] *= scale
+    # odometry measurements must live in the SAME scaled frame as the poses
+    # and landmark observations — an unscaled z makes the dataset
+    # self-contradictory (huge residuals, chaotic optimization)
+    raw_pose_edges = [(i, j, np.array([z[0] * scale, z[1] * scale, z[2]]),
+                       info) for (i, j, z, info) in raw_pose_edges]
+    landmarks = rng.uniform(-world, world, (n_landmarks, 2))
+
+    # chronological observation sweep assigning dense ids on first use
+    pose_id = {}
+    lm_id = {}
+    next_id = 0
+    raw_lm_obs = []  # (pose_idx, lm_idx, local_xy) in chronological order
+    for i, p in enumerate(poses):
+        d2 = np.sum((landmarks - p[:2]) ** 2, axis=1)
+        for li in np.flatnonzero(d2 < obs_radius ** 2):
+            c, s = np.cos(p[2]), np.sin(p[2])
+            d = landmarks[li] - p[:2]
+            local = np.array([c * d[0] + s * d[1], -s * d[0] + c * d[1]])
+            local += rng.normal(0, obs_noise, 2)
+            raw_lm_obs.append((i, li, local))
+
+    obs_by_pose = {}
+    for (i, li, local) in raw_lm_obs:
+        obs_by_pose.setdefault(i, []).append((li, local))
+
+    for i in range(n_poses):
+        pose_id[i] = next_id
+        next_id += 1
+        for (li, _) in obs_by_pose.get(i, []):
+            if li not in lm_id:
+                lm_id[li] = next_id
+                next_id += 1
+
+    pose_edges = [(pose_id[i], pose_id[j], z, info)
+                  for (i, j, z, info) in raw_pose_edges]
+    lm_edges = [(pose_id[i], lm_id[li], local) for (i, li, local) in raw_lm_obs]
+    return poses, landmarks, pose_edges, lm_edges
+
+
+def write_g2o_landmark_2d(path, pose_edges, lm_edges, obs_info=None):
+    """Write the edges interleaved in incremental vertex order: the reference's
+    flat system requires each new vertex id to be exactly max_id+1 at first
+    use ("vertices must be accessed in incremental manner",
+    reference include/slam/FlatSystem.h:2457).  Since ids were assigned by
+    first use, sorting edges by their max vertex id yields a valid order."""
+    lines = []
+    for (i, j, z, info) in pose_edges:
+        ut = [info[0, 0], info[0, 1], info[0, 2], info[1, 1], info[1, 2],
+              info[2, 2]]
+        lines.append((max(i, j),
+                      f"EDGE2 {i} {j} " + " ".join(f"{v:.10f}" for v in z) +
+                      " " + " ".join(f"{v:.10f}" for v in ut) + "\n"))
+    for (i, j, xy) in lm_edges:
+        # LANDMARK2:XY info is parsed then *discarded* by the reference
+        # (identity used); still write plausible values
+        lines.append((max(i, j),
+                      f"LANDMARK2:XY {i} {j} {xy[0]:.10f} {xy[1]:.10f} "
+                      f"1 0 1\n"))
+    lines.sort(key=lambda t: t[0])
+    with open(path, "w") as f:
+        for (_, line) in lines:
+            f.write(line)
 
 
 def make_ba_scene(n_cams=20, n_points=500, noise_px=0.5, seed=0,

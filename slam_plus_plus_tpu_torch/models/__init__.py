@@ -1,7 +1,8 @@
-"""Vertex/edge types.  Importing this package registers the ported types
-(the mono BA family: ``cam``, ``xyz``, ``edge_p2c``)."""
+"""Vertex/edge types.  Importing this package registers the ported types:
+the mono BA family (``cam``, ``xyz``, ``edge_p2c``) and the SE(2)/SE(3)
+pose-graph and landmark families."""
 
-from slam_plus_plus_tpu_torch.models import ba_types  # noqa: F401
+from slam_plus_plus_tpu_torch.models import ba_types, se2_types, se3_types  # noqa: F401
 from slam_plus_plus_tpu_torch.models.types import (
     EDGE_TYPES,
     VERTEX_TYPES,

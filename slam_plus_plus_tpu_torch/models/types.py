@@ -31,7 +31,13 @@ class VertexType:
 class EdgeType:
     """residual — batched fn (vertex_states tuple, z) -> [..., residual_dim],
     r = z - h(x) with chi2 = r^T Sigma^-1 r (reference convention);
-    initializer — host numpy fn creating missing vertices on insert."""
+    initializer — host numpy fn creating missing vertices on insert;
+    robust — IRLS weighting of the information by
+    ``LOSSES[robust_loss](|r| / robust_scale)`` (reference robust mixins,
+    include/slam/RobustUtils.h:368-502; CEdgePose3D, SE3_Types.h:128-129);
+    expectation / error — the split form h = expectation(states),
+    r = error(z, h): the Jacobians are then those of h, negated, as the
+    reference differentiates h through the vertex ⊞ (SE3_Types.h:265-290)."""
 
     name: str
     vertex_types: Tuple[str, ...]
@@ -39,6 +45,11 @@ class EdgeType:
     measurement_dim: int
     residual: Callable
     initializer: Optional[Callable] = None
+    robust: bool = False
+    expectation: Optional[Callable] = None
+    error: Optional[Callable] = None
+    robust_loss: str = "huber"
+    robust_scale: float = 0.3
 
     @property
     def arity(self) -> int:
@@ -54,8 +65,14 @@ def vertex_type(name: str, state_dim: int, tangent_dim: int, boxplus: Callable,
 
 def edge_type(name: str, vertex_types: Sequence[str], residual_dim: int,
               measurement_dim: int, residual: Callable,
-              initializer: Optional[Callable] = None) -> EdgeType:
+              initializer: Optional[Callable] = None,
+              robust: bool = False,
+              expectation: Optional[Callable] = None,
+              error: Optional[Callable] = None,
+              robust_loss: str = "huber",
+              robust_scale: float = 0.3) -> EdgeType:
     et = EdgeType(name, tuple(vertex_types), residual_dim, measurement_dim,
-                  residual, initializer)
+                  residual, initializer, robust, expectation, error,
+                  robust_loss, robust_scale)
     EDGE_TYPES[name] = et
     return et

@@ -1,9 +1,8 @@
 """Planar (flattened) small-block linear algebra, batched in torch.
 
-Port of the parts of slam_plus_plus_tpu/ops/planar.py that the BA slice
-uses.  Blocks keep the JAX package's planar layout ``[K, Br*Bc]`` (row-major
-block flattened on the last axis), so the port's block systems compare
-field by field with the JAX ones.
+Port of slam_plus_plus_tpu/ops/planar.py.  Blocks keep the JAX package's
+planar layout ``[K, Br*Bc]`` (row-major block flattened on the last axis),
+so the port's block systems compare field by field with the JAX ones.
 """
 
 from __future__ import annotations
@@ -15,6 +14,46 @@ def bmm(a, b, Br: int, Bm: int, Bc: int):
     """Per-block matmul: a [K, Br*Bm] @ b [K, Bm*Bc] -> [K, Br*Bc]."""
     K = a.shape[0]
     return torch.bmm(a.reshape(K, Br, Bm), b.reshape(K, Bm, Bc)).reshape(K, Br * Bc)
+
+
+def bmm_At_B(a, b, Br: int, Bm: int, Bc: int):
+    """Per-block a^T @ b: a [K, Bm*Br], b [K, Bm*Bc] -> [K, Br*Bc]."""
+    K = a.shape[0]
+    return torch.bmm(a.reshape(K, Bm, Br).transpose(1, 2),
+                     b.reshape(K, Bm, Bc)).reshape(K, Br * Bc)
+
+
+def bmm_A_Bt(a, b, Br: int, Bm: int, Bc: int):
+    """Per-block a @ b^T: a [K, Br*Bm], b [K, Bc*Bm] -> [K, Br*Bc]."""
+    K = a.shape[0]
+    return torch.bmm(a.reshape(K, Br, Bm),
+                     b.reshape(K, Bc, Bm).transpose(1, 2)).reshape(K, Br * Bc)
+
+
+def bmv_At(a, v, Br: int, Bc: int):
+    """Per-block a^T @ v: a [K, Br*Bc], v [K, Br] -> [K, Bc]."""
+    K = a.shape[0]
+    return torch.bmm(v.reshape(K, 1, Br), a.reshape(K, Br, Bc)).reshape(K, Bc)
+
+
+def btranspose(a, Br: int, Bc: int):
+    """Per-block transpose: [K, Br*Bc] -> [K, Bc*Br]."""
+    K = a.shape[0]
+    return a.reshape(K, Br, Bc).transpose(1, 2).reshape(K, Bc * Br)
+
+
+def bdiag(a, B: int):
+    """Per-block diagonal: [K, B*B] -> [K, B]."""
+    return a[:, ::B + 1]
+
+
+def badd_diag(a, alpha, B: int):
+    """Per-block a + alpha*I: alpha a scalar or [K]; only the diagonal
+    entries change."""
+    out = a.clone()
+    alpha = torch.as_tensor(alpha, dtype=a.dtype, device=a.device)
+    out[:, ::B + 1] += alpha[:, None] if alpha.ndim else alpha
+    return out
 
 
 def bmv(a, v, Br: int, Bc: int):

@@ -1,33 +1,198 @@
-"""Batch nonlinear solver base (port of the Schur branch of
-slam_plus_plus_tpu/solvers/gauss_newton.py::GaussNewtonSolver).
+"""Batch Gauss-Newton ("Lambda") solver.
 
-The port solves problems with an eliminated landmark class through the
-dense Schur complement; the linear backends for pose graphs (dense, sparse
-MIS-Schur block Cholesky, host oracle) are ROADMAP.md Queue 1 items 12 and 15.
+Port of slam_plus_plus_tpu/solvers/gauss_newton.py (reference
+CNonlinearSolver_Lambda::Optimize, include/slam/NonlinearSolver_Lambda.h:476-668):
+
+    for iter in range(max_iters):
+        refresh lambda at the current linearization point
+        dx = solve(lambda, eta)
+        if ||dx||_2 <= dx_threshold: break   # break BEFORE pushing
+        x <- x ⊞ dx
+
+The linear backend is chosen per structure, as in the JAX package:
+
+  * the dense Schur complement whenever a landmark class is split off;
+  * a dense direct Cholesky for float64 systems of <= 6000 scalar dims
+    (float32 never takes it: an unequilibrated pose-graph lambda has
+    kappa ~1e8, beyond a single-precision direct factor);
+  * otherwise the MIS-Schur sparse block Cholesky (linalg/block_cholesky.py),
+    in float32 capped at 8 levels and wrapped as the preconditioner of a
+    PCG with a fixed trip count and a solve-quality gate (``sparse_solve``).
+
+The float32 settings are the JAX package's: the PCG runs at most 12 trips
+and stops at 1e-4 relative residual.  With them float32 GN on the card ends
+manhattan3500 above 1.05 x the reference's chi2 (ROADMAP.md Queue 3).
+
+The host scipy oracle of the JAX package (``linear_solver="scipy"``) is not
+ported (ROADMAP.md Queue 1 item 15).  Host syncs per GN iteration: one read
+of |dx| and chi2 together, plus, in float32 on the block Cholesky, one read
+of the bottom factor's status.
 """
 
 from __future__ import annotations
 
+import math
+import time
+from typing import Optional
+
+import torch
+
 from slam_plus_plus_tpu_torch.assembly.assembler import Assembler
-from slam_plus_plus_tpu_torch.config import pin_precision
+from slam_plus_plus_tpu_torch.config import SolverSettings, pin_precision
 from slam_plus_plus_tpu_torch.graph.system import GraphSystem
+from slam_plus_plus_tpu_torch.linalg.block_cholesky import BlockCholeskySolver
+from slam_plus_plus_tpu_torch.linalg.dense import DenseScatter, cholesky_solve
 from slam_plus_plus_tpu_torch.linalg.schur import SchurSolver
+from slam_plus_plus_tpu_torch.linalg.spmv import LambdaSpmv
+
+#: scalar dims up to which float64 systems take the dense direct factor
+#: (the JAX package's value off the TPU)
+DENSE_LIMIT = 6000
+#: float32 depth cap of the block Cholesky: error through the elimination
+#: grows with the level count (the JAX package saw O(1) error at 17 levels)
+F32_MAX_LEVELS = 8
+#: PCG trip count in float32: the JAX package's refine_iterations (2) + 10
+PCG_ITERATIONS = 12
+#: relative residual at which the float32 PCG stops (the JAX package's)
+PCG_REL_TOL = 1e-4
+
+
+def sparse_solve(chol: BlockCholeskySolver, spmv: LambdaSpmv, bs, pcg_iters: int):
+    """dx_p for the pose block system bs with the block Cholesky.
+
+    pcg_iters > 0 wraps the factor as a PCG preconditioner (CG converges for
+    any SPD preconditioner, where stationary refinement diverged once the
+    float32 factor stopped being a contraction).  The loop runs pcg_iters
+    times and freezes the iterate under a device-side mask once the
+    residual reaches PCG_REL_TOL relative or rz stops being finite — the JAX package's while_loop with its early
+    exit, without a sync per iteration.
+    Then the gate: keep whichever of (direct, PCG) has the smaller true
+    residual, and NaN the step if even that is >= |b| (the caller's loop
+    stops on it).  Returns (dx_p, PCG iterations taken as a device scalar)."""
+    f = chol.factor(bs.pp_blocks)
+    b = bs.eta_p
+    dx = chol.solve_with_factor(f, b)
+    taken = torch.zeros((), dtype=torch.int64, device=b.device)
+    if not pcg_iters:
+        return dx, taken
+    zl = torch.zeros((max(spmv.Nl, 1), spmv.Bl), dtype=b.dtype, device=b.device)
+
+    def mv(x):
+        return spmv(bs, x, zl)[0]
+
+    def dot(a, c):
+        return torch.sum(a * c)
+
+    bn2 = dot(b, b)
+    tol2 = PCG_REL_TOL * PCG_REL_TOL * bn2
+    r_direct = b - mv(dx)
+    x, r = dx, r_direct
+    z = chol.solve_with_factor(f, r)
+    p, rz = z, dot(r, z)
+    active = torch.ones((), dtype=torch.bool, device=b.device)
+    for _ in range(pcg_iters):
+        active = active & (dot(r, r) > tol2) & torch.isfinite(rz)
+        Ap = mv(p)
+        alpha = rz / dot(p, Ap)
+        x_n = x + alpha * p
+        r_n = r - alpha * Ap
+        z_n = chol.solve_with_factor(f, r_n)
+        rz_n = dot(r_n, z_n)
+        p_n = z_n + (rz_n / rz) * p
+        x, r, z, p, rz = (torch.where(active, new, old) for new, old in
+                          ((x_n, x), (r_n, r), (z_n, z), (p_n, p), (rz_n, rz)))
+        taken = taken + active.to(torch.int64)
+    rel2 = dot(r, r) / torch.clamp_min(bn2, 1e-30)
+    rel2_direct = dot(r_direct, r_direct) / torch.clamp_min(bn2, 1e-30)
+    better = (rel2 < rel2_direct) & torch.isfinite(x).all()
+    dx = torch.where(better, x, dx)
+    rel2 = torch.minimum(rel2, rel2_direct)
+    return torch.where(rel2 < 1.0, dx, torch.full_like(dx, float("nan"))), taken
 
 
 class GaussNewtonSolver:
-    def __init__(self, system: GraphSystem, *, device):
+    def __init__(self, system: GraphSystem, *, device,
+                 settings: Optional[SolverSettings] = None):
         if not system.edge_stores:
             raise ValueError("cannot build a solver over an empty system "
                              "(no edges); add edges first")
         pin_precision()
         self.system = system
-        self.asm = Assembler(system, device=device)
+        self.settings = settings or SolverSettings()
+        self.asm = asm = Assembler(system, device=device, settings=self.settings)
         self.timing = {}
-        self._schur = SchurSolver(self.asm)
+        use_schur = asm.Nl > 0 and asm.Kpl > 0
+        self._schur = SchurSolver(asm) if use_schur else None
 
-    def _solve(self, block_system):
-        return self._schur.solve(block_system)
+        f32 = asm.dtype == torch.float32
+        self._dense = None
+        if (not use_schur and self.settings.linear_solver == "auto" and not f32
+                and asm.Np * asm.Bp <= DENSE_LIMIT):
+            self._dense = DenseScatter(asm.pp_rows, asm.pp_cols, asm.Np, asm.Bp,
+                                       asm.device)
+        self._sparse_chol = None
+        self.pcg_iterations = 0
+        if not use_schur and self._dense is None:
+            # large pose graphs: the MIS-Schur block Cholesky (the
+            # reference's CLinearSolver_UberBlock role)
+            self._sparse_chol = BlockCholeskySolver(
+                asm.pp_rows, asm.pp_cols, asm.Np, asm.Bp, device=asm.device,
+                **(dict(max_levels=F32_MAX_LEVELS) if f32 else {}))
+            self._spmv = LambdaSpmv(asm)
+            self.pcg_iterations = PCG_ITERATIONS if f32 else 0
+        self.pcg_taken = []      # PCG iterations of each sparse solve (device scalars)
+
+    def _solve(self, bs):
+        """(dx_p [Np, Bp], dx_l [Nl, Bl]) for a (damped) BlockSystem."""
+        asm = self.asm
+        if self._schur is not None:
+            return self._schur.solve(bs)
+        zeros_l = torch.zeros((max(asm.Nl, 1), asm.Bl), dtype=bs.eta_p.dtype,
+                              device=bs.eta_p.device)
+        if self._dense is not None:
+            dx = cholesky_solve(self._dense(bs.pp_blocks), bs.eta_p.reshape(-1))
+            return dx.reshape(asm.Np, asm.Bp), zeros_l
+        dx, taken = sparse_solve(self._sparse_chol, self._spmv, bs, self.pcg_iterations)
+        self.pcg_taken.append(taken)
+        return dx, zeros_l
+
+    def optimize(self, max_iterations: int = 5, dx_threshold: float = 0.01,
+                 verbose: bool = False):
+        """Run GN; writes the optimized states back to the system.  The
+        defaults are the reference's final-optimization settings.
+
+        Returns (final_chi2, iterations_run).  ``self.iteration_log`` keeps
+        (chi2 at the linearization point, |dx|) of every iteration."""
+        t0 = time.perf_counter()
+        asm = self.asm
+        states = asm.snapshot_states(self.system)
+        self.iteration_log = []
+        n_iters = 0
+        for it in range(max_iterations):
+            n_iters += 1
+            bs = asm.assemble(states)
+            dx_p, dx_l = self._solve(bs)
+            dx_norm = torch.sqrt(torch.sum(dx_p * dx_p) + torch.sum(dx_l * dx_l))
+            chi2, dx_norm = torch.stack([bs.chi2, dx_norm]).tolist()
+            self.iteration_log.append((chi2, dx_norm))
+            if verbose:
+                print(f"iter {it}: chi2={chi2:.2f} |dx|={dx_norm:.6f}")
+            if not math.isfinite(dx_norm):
+                break  # Cholesky failure analogue: abort iteration
+            if dx_norm <= dx_threshold:
+                break  # reference: break before pushing (Lambda.h:648)
+            states = asm.update(states, dx_p, dx_l)
+        chi2 = float(asm.chi2(states))
+        asm.writeback_states(self.system, states)
+        self.timing["optimize"] = time.perf_counter() - t0
+        return chi2, n_iters
 
     def chi2(self) -> float:
         states = self.asm.snapshot_states(self.system)
         return float(self.asm.chi2(states))
+
+
+def optimize(system: GraphSystem, *, device, settings: Optional[SolverSettings] = None,
+             max_iterations: int = 5, dx_threshold: float = 0.01, verbose: bool = False):
+    solver = GaussNewtonSolver(system, device=device, settings=settings)
+    return solver.optimize(max_iterations, dx_threshold, verbose=verbose)

@@ -16,9 +16,11 @@ CNonlinearSolver_Lambda_LM, include/slam/NonlinearSolver_Lambda_LM.h:97-226,
         bad:  alpha *= nu; nu *= 2; x <- x_saved;
               if fail: fail -= 1; max_iters += 1
 
-Each trial (damp, Schur solve, ⊞, re-assembly at the new point, the rho
-scalars) runs on the device and ends in ONE host sync that reads |dx|, the
-new chi2 and the rho denominator together.
+Each trial (damp, the GN solver's linear solve — Schur, dense or block
+Cholesky —, ⊞, re-assembly at the new point, the rho scalars) runs on the
+device and ends in ONE host sync that reads |dx|, the new chi2 and the rho
+denominator together (the float32 block Cholesky adds one read of its
+bottom factor's status).
 """
 
 from __future__ import annotations

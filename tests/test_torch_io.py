@@ -1,6 +1,7 @@
-"""Port parity: BA host input.  The same file through both parsers gives
-equal stores; the same seed through both generators gives the same bytes;
-tokens of unported families raise instead of being skipped."""
+"""Port parity: host input.  The same file through both parsers gives equal
+stores (BA and every SE(2)/SE(3)/landmark token); the same seed through both
+generators gives the same bytes; tokens of unported families raise instead
+of being skipped."""
 
 import numpy as np
 import pytest
@@ -18,6 +19,24 @@ def ba_file(tmp_path_factory):
     p = str(tmp_path_factory.mktemp("io") / "ba.g2o")
     jds.write_g2o_ba(p, cams, pts, obs)
     return p
+
+
+def _assert_same_system(js, ts):
+    assert sorted(js.vertex_stores) == sorted(ts.vertex_stores)
+    for t in js.vertex_stores:
+        assert np.array_equal(js.vertex_stores[t].data, ts.vertex_stores[t].data), t
+        assert js.vertex_stores[t].global_ids == ts.vertex_stores[t].global_ids
+    assert js.vertex_order == ts.vertex_order
+    assert js.vertex_directory == ts.vertex_directory
+    assert js._edge_insert_log == ts._edge_insert_log
+    assert sorted(js.edge_stores) == sorted(ts.edge_stores)
+    for name, je in js.edge_stores.items():
+        te = ts.edge_stores[name]
+        assert je.n == te.n > 0, name
+        for f in ("vertex_ids", "measurements", "informations"):
+            assert np.array_equal(getattr(je, f)[:je.n], getattr(te, f)[:te.n]), (name, f)
+    assert js.parse_stats.vertices == ts.parse_stats.vertices
+    assert js.parse_stats.edges == ts.parse_stats.edges
 
 
 def test_parsers_agree(ba_file):
@@ -42,8 +61,75 @@ def test_generator_is_byte_identical(tmp_path):
     assert jp.read_bytes() == tp.read_bytes()
 
 
+_INFO3 = "100 1 2 200 3 400"
+_INFO6 = " ".join(str(v) for v in (50, 1, 0, 0, 0, 2, 60, 0, 0, 3, 0, 70, 0, 0, 0,
+                                   800, 4, 0, 900, 0, 990))
+
+#: one small file per new token (and alias), each edge reaching new vertices
+#: through the edge type's initializer and ignored vertex lines around it
+NEW_TOKENS = {
+    "EDGE2": f"VERTEX2 0 1 2 0.5\nEDGE2 0 1 1.0 0.2 0.3 {_INFO3}\nEDGE2 1 2 -0.5 1.0 -3.0 {_INFO3}",
+    "EDGE_SE2": f"VERTEX_SE2 0 0 0 0\nEDGE_SE2 0 1 1.0 0.2 0.3 {_INFO3}",
+    "EDGE": f"EDGE 0 1 1.0 0.2 3.1 {_INFO3}\nVERTEX 1 5 5 5",
+    "ODOMETRY": f"ODOMETRY 0 1 1.0 0.2 0.3 {_INFO3}",
+    "LANDMARK2:XY": f"EDGE2 0 1 1.0 0 0.3 {_INFO3}\nLANDMARK2:XY 1 2 2.0 -1.5 1 0 1\n"
+                    "LANDMARK2:XY 0 2 2.5 -1.0 1 0 1",
+    "EDGE_SE2_XY": f"EDGE_SE2 0 1 1 0 0 {_INFO3}\nEDGE_SE2_XY 1 2 0.5 0.5 1 0 1",
+    "LANDMARK": "LANDMARK 0 1 3.0 4.0 1 0 1",
+    "EDGE_BEARING_SE2_XY": "EDGE_BEARING_SE2_XY 0 1 -3.0 4.0 1 0 1",
+    "LANDMARK2:RB": f"EDGE2 0 1 1 0 0 {_INFO3}\nLANDMARK2:RB 1 2 2.0 0.7 10 1 20",
+    "EDGE_SE2_RB": "EDGE_SE2_RB 0 1 2.0 -2.7 10 1 20",
+    "EDGE_BEARING_SE2_RB": "EDGE_BEARING_SE2_RB 0 1 2.0 3.0 10 1 20",
+    "EDGE3": f"VERTEX3 0 1 2 3 0.1 0.2 0.3\nEDGE3 0 1 1 2 3 0.1 -0.2 2.9 {_INFO6}\n"
+             f"EDGE3 1 2 0 1 0 3.1 0.0 -0.4 {_INFO6}",
+    "EDGE_SE3": f"VERTEX_SE3 0 0 0 0 0 0 0\nEDGE_SE3 0 1 1 2 3 0.5 1.2 -2.0 {_INFO6}",
+    "EDGE3:AXISANGLE": f"EDGE3:AXISANGLE 0 1 1 2 3 0.1 -0.2 0.3 {_INFO6}\n"
+                       f"EDGE3:AXISANGLE 1 2 0 0 1 2.0 2.0 0.0 {_INFO6}",
+    "EDGE_SE3:AXISANGLE": f"EDGE_SE3:AXISANGLE 0 1 1 2 3 0 0 1e-14 {_INFO6}",
+    "EDGE3:TERNARY": f"EDGE3:AXISANGLE 0 1 1 0 0 0 0 0.1 {_INFO6}\n"
+                     f"EDGE3:TERNARY 0 1 2 0.1 0 0 0 0.02 0 {_INFO6}",
+    "EDGE_SE3_TERNARY": f"EDGE_SE3_TERNARY 0 1 2 0.1 0.2 0 0.01 0.02 0 {_INFO6}",
+    "LANDMARK3:XYZ": f"EDGE3:AXISANGLE 0 1 1 0 0 0 0 0.5 {_INFO6}\n"
+                     f"LANDMARK3:XYZ 1 2 2 1 0.5 {_INFO3}\nVERTEX_XYZ 2 9 9 9",
+    "EDGE_SE3_XYZ": f"EDGE_SE3_XYZ 0 1 -2 1 0.5 {_INFO3}",
+}
+
+
+@pytest.mark.parametrize("token", sorted(NEW_TOKENS))
+def test_parsers_agree_on_token(tmp_path, token):
+    p = tmp_path / "t.g2o"
+    p.write_text(NEW_TOKENS[token] + "\n")
+    _assert_same_system(jparse(str(p)), tparse(str(p)))
+
+
+@pytest.mark.parametrize("family", ["manhattan", "city", "sphere", "landmark"])
+def test_pose_graph_generator_is_byte_identical(tmp_path, family):
+    jp, tp = str(tmp_path / "j.g2o"), str(tmp_path / "t.g2o")
+    if family == "manhattan":
+        for ds, p in ((jds, jp), (tds, tp)):
+            poses, edges = ds.make_manhattan_2d(n_poses=150, seed=4, loop_prob=0.3)
+            ds.write_g2o_2d(p, edges, poses)
+    elif family == "city":
+        for ds, p in ((jds, jp), (tds, tp)):
+            poses, edges = ds.make_city_2d(n_poses=300, seed=6)
+            ds.write_g2o_2d(p, edges, poses)
+    elif family == "sphere":
+        for ds, p in ((jds, jp), (tds, tp)):
+            poses, edges = ds.make_sphere_3d(n_poses=80, seed=2, trans_noise=0.01,
+                                             rot_noise=0.005)
+            ds.write_g2o_3d(p, edges, poses)
+    else:
+        for ds, p in ((jds, jp), (tds, tp)):
+            _gp, _gl, pe, le = ds.make_landmark_2d(n_poses=80, n_landmarks=30,
+                                                   world=12.0, obs_radius=5.0, seed=9)
+            ds.write_g2o_landmark_2d(p, pe, le)
+    with open(jp, "rb") as fj, open(tp, "rb") as ft:
+        assert fj.read() == ft.read()
+    _assert_same_system(jparse(jp), tparse(jp))
+
+
 @pytest.mark.parametrize("line, item", [
-    ("EDGE_SE2 0 1 1.0 0.0 0.0 1 0 0 1 0 1", "item 15"),
+    ("VERTEX_CAM:SIM3 0 0 0 0 0 0 0 1 1 500 500 320 240 0", "item 16"),
     ("VERTEX_SCAM 0 0 0 0 0 0 0 1 500 500 320 240 0 0.1", "item 10"),
     ("EDGE_PROJECT_P2MCI 9 0 10 320.0 240.0 1 0 1", "item 10"),
     ("ROCV:RANGE 0 1 2.5 1", "item 16"),

@@ -1,5 +1,6 @@
-"""Port parity: batched torch manifold math against the JAX functions
-(vmapped) on seeded random batches, float64, <= 1e-12 absolute."""
+"""Port parity: batched torch manifold math and robust weights against the
+JAX functions (vmapped) on seeded random batches, float64, <= 1e-12
+absolute."""
 
 import numpy as np
 import pytest
@@ -9,13 +10,17 @@ import jax
 import jax.numpy as jnp
 
 from slam_plus_plus_tpu.manifolds import camera as jcam
+from slam_plus_plus_tpu.manifolds import se2 as jse2
 from slam_plus_plus_tpu.manifolds import se3 as jse3
 from slam_plus_plus_tpu.manifolds import so3 as jso3
 from slam_plus_plus_tpu.models import ba_types as jba
+from slam_plus_plus_tpu.robust import losses as jlosses
 from slam_plus_plus_tpu_torch.manifolds import camera as tcam
+from slam_plus_plus_tpu_torch.manifolds import se2 as tse2
 from slam_plus_plus_tpu_torch.manifolds import se3 as tse3
 from slam_plus_plus_tpu_torch.manifolds import so3 as tso3
 from slam_plus_plus_tpu_torch.models import ba_types as tba
+from slam_plus_plus_tpu_torch.robust import losses as tlosses
 
 TOL = 1e-12
 N = 257
@@ -42,6 +47,21 @@ def _pose(rng):
     return np.concatenate([rng.normal(0, 2.0, (N, 3)), _aa(rng)], axis=1)
 
 
+def _pose2(rng):
+    """SE(2) poses with headings over several turns (wrapping)."""
+    return np.concatenate([rng.normal(0, 3.0, (N, 2)), rng.uniform(-9, 9, (N, 1))], axis=1)
+
+
+def _xy(rng):
+    return rng.normal(0, 3.0, (N, 2))
+
+
+def _angle(rng):
+    a = rng.uniform(-20, 20, N)
+    a[:4] = [np.pi, -np.pi, 0.0, 3 * np.pi]
+    return a
+
+
 def _intrinsics(rng):
     f = rng.uniform(300, 700, (N, 2))
     c = rng.uniform(200, 400, (N, 2))
@@ -65,6 +85,18 @@ CASES = {
     "quat_rotate": (jso3.quat_rotate, tso3.quat_rotate, (_quat, _point)),
     "se3_compose": (jse3.compose, tse3.compose, (_pose, _pose)),
     "se3_boxplus": (jse3.boxplus, tse3.boxplus, (_pose, lambda r: 0.1 * _pose(r))),
+    "se3_relative_to": (jse3.relative_to, tse3.relative_to, (_pose, _pose)),
+    "se3_inverse": (jse3.inverse, tse3.inverse, (_pose,)),
+    "se3_pose_error": (jse3.pose_error, tse3.pose_error, (_pose, _pose)),
+    "se3_landmark_in_frame": (jse3.landmark_in_frame, tse3.landmark_in_frame,
+                              (_pose, _point)),
+    "se2_wrap_angle": (jse2.wrap_angle, tse2.wrap_angle, (_angle,)),
+    "se2_compose": (jse2.compose, tse2.compose, (_pose2, _pose2)),
+    "se2_relative_to": (jse2.relative_to, tse2.relative_to, (_pose2, _pose2)),
+    "se2_inverse": (jse2.inverse, tse2.inverse, (_pose2,)),
+    "se2_boxplus": (jse2.boxplus, tse2.boxplus, (_pose2, _pose2)),
+    "se2_landmark_in_frame": (jse2.landmark_in_frame, tse2.landmark_in_frame,
+                              (_pose2, _xy)),
     "project_p2c": (jcam.project_p2c, tcam.project_p2c,
                     (lambda r: 0.1 * _pose(r), _intrinsics, _point)),
     "cam_boxplus": (jba._cam_boxplus, tba._cam_boxplus,
@@ -82,4 +114,15 @@ def test_manifold_function_matches_jax(name):
     got = tfn(*[torch.from_numpy(a) for a in args])
     assert got.dtype == torch.float64
     assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("name", sorted(jlosses.LOSSES))
+def test_robust_weight_matches_jax(name):
+    """IRLS weights on |x| from 0 through every loss's knees to the tails."""
+    x = np.concatenate([[0.0, 1e-40, 1.345, 2.385, 4.685, 1.5, 3.5, 8.0],
+                        np.random.default_rng(5).uniform(0, 12, 249)])
+    want = np.asarray(jlosses.LOSSES[name](jnp.asarray(x)))
+    got = tlosses.LOSSES[name](torch.from_numpy(x))
+    assert got.dtype == torch.float64 and got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL)

@@ -65,6 +65,27 @@ def test_damped_schur_steps_match(ba_file):
             assert _rel(tst[t], jst[t]) <= 1e-9, t
 
 
+def test_flat_schur_branch_on_the_uniform_layout(ba_file, monkeypatch):
+    """Uniform BA panels past UNIFORM_PANEL_BYTES take the flat branch, as in
+    the JAX package: its damped Schur step (the dummy slots' zero blocks
+    summed in) equals the JAX package's uniform one."""
+    from slam_plus_plus_tpu_torch.linalg import schur as tschur
+    monkeypatch.setattr(tschur, "UNIFORM_PANEL_BYTES", 0)
+    js, ts = jparse(ba_file), tparse(ba_file)
+    ja, ta = JAssembler(js), TAssembler(ts, device="cpu")
+    assert ta.pl_uniform is not None
+    tsch = TSchur(ta)
+    assert not tsch.uniform
+    jst = ja.snapshot_states(js)
+    tst = ta.states_from_numpy({k: np.asarray(v) for k, v in jst.items()})
+    jb = ja.assemble(jst)
+    jb = jdamp(jb, jb.max_hdiag * jnp.asarray(1e-3), ja.pp_diag_ids_dev)
+    tb = ta.assemble(tst)
+    tb = tdamp(tb, tb.max_hdiag * 1e-3, ta.pp_diag_ids_dev)
+    for w, g in zip(JSchur(ja).solve(jb), tsch.solve(tb)):
+        assert _rel(g, w) <= 1e-9
+
+
 @pytest.fixture(scope="module")
 def jax_lm(ba_file):
     """The JAX LM run: (final chi2, iterations, per-trial (|dx|, chi2, denom)),
@@ -112,6 +133,16 @@ def test_cli_without_card_fails(ba_file, capsys):
     assert "no CUDA device" in capsys.readouterr().err
 
 
+#: every module of the port, all imported by the walk below
+PORT_MODULES = (
+    "app.main", "assembly.assembler", "config", "graph.system",
+    "io.acceptance", "io.datasets", "io.parser", "linalg.block_cholesky", "linalg.dense", "linalg.schur",
+    "linalg.spmv", "manifolds.camera", "manifolds.se2", "manifolds.se3",
+    "manifolds.so3", "models.ba_types", "models.se2_types", "models.se3_types",
+    "models.types", "ops.p2c", "ops.panel", "ops.planar", "robust.losses",
+    "solvers.gauss_newton", "solvers.lm")
+
+
 def test_port_never_imports_jax():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -121,6 +152,9 @@ def test_port_never_imports_jax():
         "bad = sorted(n for n in sys.modules\n"
         "             if n.split('.')[0] in ('jax', 'jaxlib', 'slam_plus_plus_tpu'))\n"
         "assert not bad, bad\n"
+        f"missing = [m for m in {PORT_MODULES!r} if 'slam_plus_plus_tpu_torch.' + m\n"
+        "           not in sys.modules]\n"
+        "assert not missing, missing\n"
         "print('ok')\n")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
