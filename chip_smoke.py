@@ -8,7 +8,8 @@ it never falls back to the CPU.  Phases, each of which must pass:
 
   1. build the hand-written kernels (csrc/*.cu) with nvcc for sm_90a;
   2. K1 (p2c_edge_terms) and K2 (build_panels) against their plain torch
-     versions on the card at the bench shapes, float32 and float64, with
+     versions on the card at the bench shapes, float32 and float64 (K1 also
+     at venice-real's 800,000 slots, reported under its "venice_real" key), with
      CUDA-event times of both beside each kernel's bound; K2 on the solver's
      strided view of its blocks, bitwise, at the bench shape and at a second
      one whose panel rows need several column windows and whose ranges start
@@ -40,7 +41,22 @@ it never falls back to the CPU.  Phases, each of which must pass:
      and must end finite and below its starting chi2; per row the iterations, ms per iteration,
      MIS levels, bottom blocks, PCG iterations, the largest |H - H^T| over
      lambda's diagonal blocks and the peak device memory; and a
-     torch.profiler trace of two city10k GN iterations.
+     torch.profiler trace of two city10k GN iterations;
+  8. the rest of batch BA: (a) a small scene forced through the
+     sparse-reduced Schur (sparse_reduced_limit=1), its clique and gathered
+     paths on the card (float32) against the CPU's solve of the same float32
+     lambda (1e-4 x scale) and the CPU float64 solve (2e-3 x scale: the JAX
+     package's float32 bottom ridge); (b) small intrinsics, stereo and
+     spheron files through LM and a stereo file through -dl (-mfnsi 30), by
+     the CLI's code path, final chi2 within 1e-4 of the CPU float64 run, and
+     a mono BA file through -dl printed as a recorded float32 miss; (c) the
+     venice-real row (871 cameras, 100,000 points, 800,000 observations,
+     io/acceptance.py) through the CLI's code path: the sparse-reduced Schur
+     with its clique path, LM's 5 iterations gated at chi2 <= 1.05 x the
+     reference binary's 323432.49, the trajectory against the reference's,
+     ms per LM iteration over 3 more iterations, a stage split of one
+     solve, peak device memory and a profile of one LM iteration; (d) K1
+     launched during that row and K2 not.
 
 The last two lines are a JSON object describing each kernel and the result
 line {"ok": true, "device": {...}}.
@@ -62,6 +78,7 @@ TIMED_STEPS = 4
 REF_FINAL_CHI2 = 222855.82                        # bench.py's gate
 BENCH_E, BENCH_NL, BENCH_M = 608000, 8000, 76     # uniform layout of that scene
 BENCH_MIN_OBS = 32                                # its least-observed landmark
+VENICE_E = 800000                                 # venice-real's slots: M = 8, no dummies
 K2_WIDE = (1000, 75, 871)     # Nl, M, cameras: several windows, odd M and cameras
 HBM_BYTES_PER_S = 3.35e12                         # H100 SXM, NVIDIA's data sheet
 PEAK_FLOPS = {4: 67e12, 8: 34e12}                 # float32 / float64 outside tensor cores
@@ -119,6 +136,13 @@ def main() -> int:
 
     # ---- 7. pose-graph SLAM -------------------------------------------------
     pose_graph_phase(torch, dev, card)
+
+    # ---- 8. the rest of batch BA ------------------------------------------
+    t0 = time.perf_counter()
+    sparse_schur_check(torch, dev)
+    ba_family_rows(torch, dev)
+    venice_row(torch, dev, card, k1)
+    print(f"phase 8 (the rest of batch BA): {time.perf_counter() - t0:.1f} s wall")
 
     print(f"card: {card}")
     print(json.dumps({"kernels": [k1, k2]}))
@@ -189,14 +213,13 @@ def compare(torch, name, got, want, tol, names):
     return abs_err, rel_err
 
 
-def kernel_phase_p2c(torch, dev):
-    from slam_plus_plus_tpu_torch.ops.p2c import p2c_edge_terms, p2c_edge_terms_plain
-
-    E = BENCH_E
-    rng = np.random.default_rng(SEED)
+def p2c_inputs(E, dummy_share, seed=SEED):
+    """Random K1 inputs [11, E] [3, E] [2, E] [4, E] (float64 numpy):
+    cameras near the origin looking down +z at a cloud 4..8 deep, as in the
+    bench scene (every point well in front of its camera), a dummy_share
+    of zero-information slots."""
+    rng = np.random.default_rng(seed)
     cam = np.zeros((11, E))
-    # cameras near the origin looking down +z at a cloud 4..8 deep, as in
-    # the bench scene (every point well in front of its camera)
     cam[0:3] = rng.normal(0, 0.3, (3, E))
     cam[3:6] = rng.normal(0, 0.1, (3, E))
     cam[3:6, :1000] = 0.0                                  # theta = 0
@@ -207,35 +230,50 @@ def kernel_phase_p2c(torch, dev):
     pt[2] += 6.0
     z = np.stack([rng.uniform(0, 640, E), rng.uniform(0, 480, E)])
     info = np.tile(np.array([[1.0], [0.0], [0.0], [1.0]]), (1, E))
-    dummy = rng.random(E) < (BENCH_E - 457543) / BENCH_E  # the bench's dummy share
+    dummy = rng.random(E) < dummy_share
     info[:, dummy] = 0.0
     z[:, dummy] = 0.0
+    return cam, pt, z, info
+
+
+def kernel_phase_p2c(torch, dev):
+    """K1 against its plain version at the bench scene's E (with its dummy
+    share) and at venice-real's (800,000 slots, none of them dummies)."""
+    from slam_plus_plus_tpu_torch.ops.p2c import p2c_edge_terms, p2c_edge_terms_plain
 
     result = None
-    for dt, tol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
-        args = [torch.tensor(a, dtype=dt, device=dev) for a in (cam, pt, z, info)]
-        got = p2c_edge_terms(*args)
-        want = p2c_edge_terms_plain(*args)
-        abs_err, rel_err = compare(torch, f"K1 {str(dt)[6:]}", got, want, tol,
-                                   ("chi2", "hdiag", "g_cam", "g_pt", "hcc", "hcp", "hpp"))
-        ms = cuda_ms(torch, lambda: p2c_edge_terms(*args))
-        one_ms = call_ms(torch, lambda: p2c_edge_terms(*args))
-        plain_ms = call_ms(torch, lambda: p2c_edge_terms_plain(*args))
-        size = args[0].element_size()
-        bound_ms, bound_by = bound(E * 94 * size, E * P2C_FLOPS_PER_SLOT, size)
-        gbs = E * 94 * size / (ms * 1e-3) / 1e9
-        print(f"K1 p2c_edge_terms {str(dt)[6:]} E={E}: max abs err {abs_err:.3e}, "
-              f"max err/scale {rel_err:.3e} (tol {tol:g}); back to back {ms:.4f} ms "
-              f"({gbs:.0f} GB/s of inputs+outputs), bound {bound_ms:.4f} ms ({bound_by}), "
-              f"{bound_ms / ms:.1%} of the bound; one call from idle {one_ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms")
-        if dt == torch.float32:
-            result = dict(name="p2c_edge_terms", route="cuda",
-                          source="slam_plus_plus_tpu_torch/csrc/p2c.cu",
-                          replaces="slam_plus_plus_tpu/ops/pallas_p2c.py:185",
-                          launches=0, max_abs_err=abs_err, ms=one_ms, plain_ms=plain_ms,
-                          bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                          ms_back_to_back=ms, launches_per_step=None)
+    for E, share in ((BENCH_E, (BENCH_E - 457543) / BENCH_E), (VENICE_E, 0.0)):
+        inputs = p2c_inputs(E, share)
+        for dt, tol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
+            args = [torch.tensor(a, dtype=dt, device=dev) for a in inputs]
+            got = p2c_edge_terms(*args)
+            want = p2c_edge_terms_plain(*args)
+            abs_err, rel_err = compare(torch, f"K1 {str(dt)[6:]} E={E}", got, want, tol,
+                                       ("chi2", "hdiag", "g_cam", "g_pt", "hcc", "hcp", "hpp"))
+            ms = cuda_ms(torch, lambda: p2c_edge_terms(*args))
+            one_ms = call_ms(torch, lambda: p2c_edge_terms(*args))
+            plain_ms = call_ms(torch, lambda: p2c_edge_terms_plain(*args))
+            size = args[0].element_size()
+            bound_ms, bound_by = bound(E * 94 * size, E * P2C_FLOPS_PER_SLOT, size)
+            gbs = E * 94 * size / (ms * 1e-3) / 1e9
+            print(f"K1 p2c_edge_terms {str(dt)[6:]} E={E}: max abs err {abs_err:.3e}, "
+                  f"max err/scale {rel_err:.3e} (tol {tol:g}); back to back {ms:.4f} ms "
+                  f"({gbs:.0f} GB/s of inputs+outputs), bound {bound_ms:.4f} ms ({bound_by}), "
+                  f"{bound_ms / ms:.1%} of the bound; one call from idle {one_ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms")
+            numbers = dict(max_abs_err=abs_err, ms=one_ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by, ms_back_to_back=ms)
+            if E == BENCH_E and dt == torch.float32:
+                result = dict(name="p2c_edge_terms", route="cuda",
+                              source="slam_plus_plus_tpu_torch/csrc/p2c.cu",
+                              replaces="slam_plus_plus_tpu/ops/pallas_p2c.py:185",
+                              launches=0, library_ms=None, launches_per_step=None,
+                              venice_real={"E": VENICE_E, "launches": 0,
+                                           "launches_per_iteration": None},
+                              **numbers)
+            elif E == VENICE_E:
+                result["venice_real"][str(dt)[6:]] = numbers
+            del args, got, want
     return result
 
 
@@ -738,12 +776,227 @@ def pose_graph_phase(torch, dev, card):
     p2c_edge_terms.launches = 0
     build_panels.launches = 0
     steps = {}
-    for name, (flags, golden) in acceptance.ROWS.items():
+    for name in acceptance.POSE_ROWS:
+        flags, golden = acceptance.ROWS[name]
         steps[name] = pose_row(torch, dev, card, name, flags, golden)
     print(f"launches during the pose-graph rows: p2c_edge_terms {p2c_edge_terms.launches}, "
           f"build_panels {build_panels.launches} (no Pallas kernel lies on this path)")
     _solver, states, step = steps["city10k"]
     profile_steps(torch, step, states, n_steps=2, what="city10k GN iterations")
+
+
+# ---- phase 8: the rest of batch BA -------------------------------------------
+
+#: the small forced sparse-reduced scene (tests/test_torch_sparse_schur.py's)
+CLIQUE_SCENE = dict(n_cams=24, n_points=400, obs_per_point=6, seed=5)
+#: card float32 against the CPU float64 solve of the same scene: the JAX
+#: package's float32 bottom factor adds a 1e-5 ridge to the equilibrated
+#: matrix, which moves this scene's damped step by ~1e-3 x its scale
+#: (ROADMAP.md Queue 3); card against CPU on the same float32 lambda: 1e-4
+SPARSE_TOL_F64, SPARSE_TOL_F32 = 2e-3, 1e-4
+INTRINSICS_GOLDEN = 20520.96      # the reference binary's (tests/test_model_families.py)
+
+
+def sparse_schur_check(torch, dev):
+    """The small scene's damped lambda solved by the sparse-reduced branch
+    (forced with sparse_reduced_limit=1) on the card in float32, by the
+    clique and the gathered path: against the CPU solve of the same float32
+    lambda, and against the CPU float64 solve (held against the JAX package
+    by the tests)."""
+    from slam_plus_plus_tpu_torch.assembly.assembler import Assembler, BlockSystem
+    from slam_plus_plus_tpu_torch.io import datasets as D
+    from slam_plus_plus_tpu_torch.io.parser import parse_g2o
+    from slam_plus_plus_tpu_torch.linalg.schur import SchurSolver
+    from slam_plus_plus_tpu_torch.solvers.lm import damp_system
+
+    path = os.path.join(_scene_dir(), "smoke_clique_24_400_6_5.g2o")
+    D.write_g2o_ba(path, *D.make_ba_scene_large(**CLIQUE_SCENE))
+    system = parse_g2o(path)
+    sol = {}
+    for d in ("cpu", dev):
+        asm = Assembler(system, device=d)
+        bs = asm.assemble(asm.snapshot_states(system))
+        sol[str(d)] = (asm, damp_system(bs, bs.max_hdiag * 1e-3, asm.pp_diag_ids_dev))
+    (asm64, bs64), (asm, bs) = sol["cpu"], sol[str(dev)]
+    bs32_cpu = BlockSystem(*[x.cpu() for x in bs])
+    check(bs.pp_blocks.dtype == torch.float32, "sparse scene: card dtype")
+    for clique in (True, False):
+        errs = []
+        solvers = [SchurSolver(a, sparse_reduced_limit=1) for a in (asm, asm64)]
+        for sch in solvers:
+            check(sch.sparse_reduced and sch.clique, "sparse scene: branch or clique path")
+            sch.clique = clique
+        got = solvers[0].solve(bs)
+        for ref, tol in ((solvers[1].solve(bs32_cpu), SPARSE_TOL_F32),
+                         (solvers[1].solve(bs64), SPARSE_TOL_F64)):
+            worst = 0.0
+            for w, g in zip(ref, got):
+                w, g = w.double(), g.double().cpu()
+                check(bool(torch.isfinite(g).all()), "sparse scene: step not finite")
+                worst = max(worst, float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30))
+            check(worst <= tol, f"sparse scene {'clique' if clique else 'gathered'}: "
+                                f"{worst:.3e} > {tol:g} x scale")
+            errs.append(worst)
+        print(f"sparse-reduced Schur, small scene ({asm.Np} cams, {asm.Nl} pts, "
+              f"{'clique' if clique else 'gathered'} path, Ksc {solvers[0].Ksc}, "
+              f"{solvers[0].reduced_chol.n_levels} MIS levels): card float32 damped step vs "
+              f"the CPU's on the same float32 lambda {errs[0]:.3e} x scale (tol "
+              f"{SPARSE_TOL_F32:g}); vs CPU float64 {errs[1]:.3e} x scale (tol {SPARSE_TOL_F64:g})")
+
+
+def ba_family_rows(torch, dev):
+    """Small intrinsics, stereo and spheron files through LM, and a stereo
+    file through -dl, by the CLI's code path on the card (float32) and on
+    the CPU (float64): final chi2 within 1e-4 relative.  A mono BA file
+    through -dl is printed beside them: in float32 its undamped GN step is
+    not finite (the reference frame fixes no scale) and the dogleg takes
+    clipped Cauchy steps (ROADMAP.md Queue 3); it must end finite and below
+    its start."""
+    from slam_plus_plus_tpu_torch.app import main as cli
+    from slam_plus_plus_tpu_torch.io import datasets as D
+    from slam_plus_plus_tpu_torch.io.parser import parse_g2o
+
+    d = _scene_dir()
+    cams, pts, obs = D.make_ba_scene(n_cams=8, n_points=150, seed=30)
+    files = {"intrinsics": os.path.join(d, "smoke_bai.g2o"),
+             "stereo": os.path.join(d, "smoke_bas.g2o"),
+             "spheron": os.path.join(d, "smoke_sph.g2o"),
+             "mono": os.path.join(d, "smoke_ba_8_200_31.g2o")}
+    D.write_g2o_ba_intrinsics(files["intrinsics"], cams, pts, obs)
+    D.write_g2o_ba_stereo(files["stereo"], cams, pts, D.make_ba_stereo_obs(cams, pts, seed=31))
+    D.write_g2o_spheron(files["spheron"], *D.make_spheron_scene(seed=32))
+    D.write_g2o_ba(files["mono"], *D.make_ba_scene(n_cams=8, n_points=200, seed=31))
+    rows = (("intrinsics", []), ("stereo", []), ("spheron", []),
+            ("stereo", ["-dl", "-mfnsi", "30"]), ("mono", ["-dl"]))
+    for name, flags in rows:
+        out = {}
+        for device in ("cpu", dev.type):
+            args = cli.build_argparser().parse_args(
+                ["-i", files[name], "--device", device, "-s"] + flags)
+            out[device] = cli.run(args)
+        (want, wit, _), (got, git, solver) = out["cpu"], out[dev.type]
+        check(solver.asm.dtype == torch.float32, f"{name}: the card path runs float32")
+        err = abs(got - want) / want
+        label = f"{name} {' '.join(flags) or 'LM'}"
+        check(np.isfinite(got), f"{label}: chi2 {got}")
+        if name == "mono":
+            start = float(solver.asm.chi2(solver.asm.snapshot_states(parse_g2o(files[name]))))
+            check(got < start, f"{label}: chi2 {got} not below its start")
+            verdict = f"a recorded float32 miss (ROADMAP.md Queue 3), below its start {start:.2f}"
+        else:
+            check(err <= 1e-4, f"{label}: card {got} vs CPU {want}, {err:.3e} relative")
+            verdict = "tol 1e-4"
+        if name == "intrinsics":
+            check(got <= 1.05 * INTRINSICS_GOLDEN,
+                  f"intrinsics: chi2 {got:.2f} > 1.05 x {INTRINSICS_GOLDEN}")
+            verdict += f"; <= 1.05 x the reference's {INTRINSICS_GOLDEN}"
+        print(f"BA family {label} ({solver.system.num_vertices} vertices, "
+              f"{solver.system.num_edges} edges): card float32 chi2 {got:.6f} in {git} "
+              f"iterations vs CPU float64 {want:.6f} in {wit}, relative {err:.3e} ({verdict})")
+
+
+def venice_row(torch, dev, card, k1):
+    """venice-real (871 cameras, 100,000 points, 800,000 observations; the
+    reference's headline BA workload) through the CLI's code path: it must
+    take the sparse-reduced Schur with its clique path, and LM's 5
+    iterations must end at <= 1.05 x the reference binary's chi2.  Then the
+    steady ms per LM iteration over 3 more iterations (as
+    scripts/venice_real_tpu.py measures it), a stage split of one solve,
+    peak device memory, a profile of one LM iteration, and the launch
+    counters: K1 launched during the row, K2 not."""
+    from slam_plus_plus_tpu_torch.app import main as cli
+    from slam_plus_plus_tpu_torch.io import acceptance
+    from slam_plus_plus_tpu_torch.ops.p2c import p2c_edge_terms
+    from slam_plus_plus_tpu_torch.ops.panel import build_panels
+    from slam_plus_plus_tpu_torch.solvers.lm import damp_system
+
+    flags, golden = acceptance.ROWS["venice-real"]
+    t0 = time.perf_counter()
+    path = acceptance.dataset("venice-real", _scene_dir())
+    t_scene = time.perf_counter() - t0
+    p2c_edge_terms.launches = 0
+    build_panels.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    args = cli.build_argparser().parse_args(["-i", path, "--device", dev.type, "-v"] + flags)
+    t0 = time.perf_counter()
+    chi2, iters, solver = cli.run(args)
+    t_cli = time.perf_counter() - t0
+    launches = (p2c_edge_terms.launches, build_panels.launches)
+    asm, sch = solver.asm, solver._schur
+    check(asm.dtype == torch.float32, "venice-real: the card path runs float32")
+    check(sch is not None and sch.sparse_reduced, "venice-real: not the sparse-reduced Schur")
+    check(sch.clique, "venice-real: the clique path did not engage")
+    check(asm.pl_uniform is not None and asm.M == 8 and asm.Nl * asm.M == VENICE_E,
+          "venice-real: not K1's uniform layout at M = 8 without dummies")
+    traj = [e for (_n, e, _d) in solver.trial_log]
+    check(np.isfinite(chi2) and chi2 <= acceptance.GATE * golden,
+          f"venice-real: chi2 {chi2:.2f} > {acceptance.GATE} x {golden}")
+    check(launches[0] > 0, "venice-real: K1 was not launched")
+    check(launches[1] == 0, f"venice-real: K2 launched {launches[1]} times")
+    print(f"venice-real ({solver.system.num_vertices} vertices, {solver.system.num_edges} "
+          f"edges; {asm.Np} x {asm.Bp} + {asm.Nl} x {asm.Bl} dims): scene file "
+          f"{t_scene:.1f} s, construct {solver.timing['construct']:.1f} s, CLI path "
+          f"{t_cli:.1f} s with parse; sparse_reduced {sch.sparse_reduced}, clique "
+          f"{sch.clique} (M {sch.M}), Ksc {sch.Ksc}, MIS levels {sch.reduced_chol.n_levels}, "
+          f"bottom blocks {sch.reduced_chol.plan.n_bottom}")
+    print(f"venice-real LM: initial chi2 {solver.initial_chi2:.2f} (reference "
+          f"{acceptance.VENICE_INITIAL_CHI2}); per iteration " +
+          " / ".join(f"{e:.1f}" for e in traj) + " (reference " +
+          " / ".join(f"{e:g}" for e in acceptance.VENICE_TRAJECTORY) +
+          f"); final {chi2:.2f} in {iters} iterations <= {acceptance.GATE} x {golden} "
+          f"(ratio {chi2 / golden:.6f}); optimize {solver.timing['optimize']:.2f} s")
+
+    # steady rate: 3 more LM iterations from the solved states
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _chi2b, it2 = solver.optimize(3)
+    torch.cuda.synchronize()
+    ms_iter = (time.perf_counter() - t0) / max(it2, 1) * 1e3
+
+    # stage split of one solve at the solved states, synchronized per stage
+    states = asm.snapshot_states(solver.system)
+    base = asm.assemble(states)
+    alpha = float(base.max_hdiag) * 1e-3
+    stages = {k: [] for k in ("assemble", "w_rhs", "clique_index_add", "block_cholesky",
+                              "back_substitute")}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    for _ in range(3):
+        bs = timed("assemble", lambda: damp_system(asm.assemble(states), alpha,
+                                                   asm.pp_diag_ids_dev))
+        c_inv, u, w, rhs = timed("w_rhs", lambda: sch._sparse_w_rhs(bs))
+        sc = timed("clique_index_add", lambda: sch._sparse_sc(bs, u, w))
+        dx_p = timed("block_cholesky", lambda: sch._sparse_factor_solve(sc, rhs))
+        timed("back_substitute", lambda: sch._sparse_back_substitute(bs, c_inv, u, dx_p))
+        del bs, c_inv, u, w, rhs, sc, dx_p
+    split = {k: statistics.median(v) for k, v in stages.items()}
+    k1["venice_real"]["launches"] = launches[0]
+
+    def step(st):
+        """One LM trial (damp, solve, update, re-assembly, its host read)."""
+        new, _sys, n, e, den = solver._trial(st, base, alpha)
+        torch.stack([n, e, den]).tolist()
+        return new, e
+
+    before = p2c_edge_terms.launches
+    step(states)
+    k1["venice_real"]["launches_per_iteration"] = p2c_edge_terms.launches - before
+    print(f"venice-real: {ms_iter:.2f} ms per LM iteration steady ({it2} iterations of "
+          f"optimize(3), its set-up assemble and chi2 included) on {card}; stage split of "
+          f"one solve (median of 3, synchronized, ms): " +
+          ", ".join(f"{k} {v:.3f}" for k, v in split.items()) +
+          f"; sum {sum(split.values()):.3f}; launches during the row: p2c_edge_terms "
+          f"{launches[0]} ({k1['venice_real']['launches_per_iteration']} per LM "
+          f"iteration), build_panels {launches[1]}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_steps(torch, step, states, n_steps=1, what="venice-real LM iteration")
 
 
 if __name__ == "__main__":

@@ -5,13 +5,16 @@ the same relative path.  It imports torch, numpy and scipy, never JAX: the
 JAX package stays in the repository as the reference the port's tests hold
 it against.
 
-Ported so far: the bundle-adjustment Levenberg-Marquardt main path (g2o BA
-input, the uniform per-landmark assembly, the dense Schur solve, the LM
-loop), with the two Pallas kernels of that path rewritten as CUDA C++ for
-Hopper (``csrc/``).  ROADMAP.md lists what is still to be ported.
+Ported so far: batch bundle adjustment (mono, intrinsics, stereo and
+spheron g2o input; the uniform per-landmark and the generic assembly; the
+dense and the sparse-reduced Schur solves; Lambda-LM and the Lambda-DL
+dogleg) and batch pose-graph SLAM (SE(2)/SE(3), landmarks, GN over the
+MIS-Schur block Cholesky), with the two Pallas kernels of the BA path
+rewritten as CUDA C++ for Hopper (``csrc/``).  ROADMAP.md lists what is
+still to be ported.
 
 Public API:
-    parse_g2o / peek_dataset  — BA dataset ingestion (g2o dialect)
+    parse_g2o / peek_dataset  — dataset ingestion (g2o dialect)
     GraphSystem               — typed columnar factor-graph container
     default_dtype / pin_precision
 """

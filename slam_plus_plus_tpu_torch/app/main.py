@@ -1,13 +1,15 @@
 """Batch CLI of the port (the batch paths of slam_plus_plus_tpu/app/main.py,
 reference src/slam_app/Main.cpp:41).
 
-    python -m slam_plus_plus_tpu_torch.app.main -i file.g2o [-po] [-lm]
+    python -m slam_plus_plus_tpu_torch.app.main -i file.g2o [-po] [-lm | -dl]
         [-v] [-s] [-mfnsi N] [-fnset X] [--device cuda|cpu]
 
-  -i <file>      input dataset (g2o dialect: mono BA, SE(2), SE(3) tokens)
+  -i <file>      input dataset (g2o dialect: mono, intrinsics, stereo and
+                 spheron BA; SE(2) and SE(3) pose graphs and landmarks)
   -po            pose-only (expect no landmarks; informational)
   -lm, -,\\lm    Lambda-LM; the default is LM for BA datasets and GN
                  (Lambda) otherwise, as the reference (Main.cpp:205-210)
+  -dl, -,\\dl    Lambda-DL, the dogleg trust-region solver
   -mfnsi <N>     max final-optimization iterations     (default 5)
   -fnset <e>     final-optimization dx threshold       (default 0.01)
   -s / -v        silent / verbose
@@ -33,6 +35,8 @@ def build_argparser():
     p.add_argument("-po", "--pose-only", action="store_true")
     p.add_argument("-lm", "-,\\lm", dest="solver", action="store_const",
                    const="lambda_lm")
+    p.add_argument("-dl", "-,\\dl", dest="solver", action="store_const",
+                   const="lambda_dl")
     p.add_argument("-mfnsi", type=int, default=5)
     p.add_argument("-fnset", type=float, default=0.01)
     p.add_argument("-s", "--silent", action="store_true")
@@ -42,9 +46,10 @@ def build_argparser():
 
 
 def run(args):
-    """Parse, solve (GN or Lambda-LM), print the reference CLI's lines.
-    Returns (final chi2, iterations, the solver)."""
+    """Parse, solve (GN, Lambda-LM or Lambda-DL), print the reference CLI's
+    lines.  Returns (final chi2, iterations, the solver)."""
     from slam_plus_plus_tpu_torch.io.parser import parse_g2o, peek_dataset
+    from slam_plus_plus_tpu_torch.solvers.dogleg import DoglegSolver
     from slam_plus_plus_tpu_torch.solvers.gauss_newton import GaussNewtonSolver
     from slam_plus_plus_tpu_torch.solvers.lm import LevenbergMarquardtSolver
 
@@ -60,8 +65,9 @@ def run(args):
               f"edges in {time.perf_counter() - t0:.3f}s")
 
     t0 = time.perf_counter()
-    lm = (args.solver or ("lambda_lm" if is_ba else "lambda")) == "lambda_lm"
-    cls = LevenbergMarquardtSolver if lm else GaussNewtonSolver
+    kind = args.solver or ("lambda_lm" if is_ba else "lambda")
+    cls = {"lambda_lm": LevenbergMarquardtSolver, "lambda_dl": DoglegSolver,
+           "lambda": GaussNewtonSolver}[kind]
     solver = cls(system, device=args.device)
     if args.verbose:
         print(f"initial denormalized chi2 error: {solver.chi2():.2f}")

@@ -1,9 +1,11 @@
-"""The batch pose-graph rows of docs/ACCEPTANCE_TPU.md, made by the port's
-generators at the settings of scripts/acceptance.py.
+"""The batch rows of docs/ACCEPTANCE_TPU.md that the port runs, made by the
+port's generators: the four pose-graph rows at the settings of
+scripts/acceptance.py, and the BA row venice-real (871 cameras, 100,000
+points, 800,000 observations) as scripts/venice_real_tpu.py:38-41 makes it.
 
 Each row: the CLI flags it runs with and the reference binary's final chi2
-on the same file (docs/ACCEPTANCE_TPU.md:16-21), which the port's result is
-gated against at 1.05 x.
+on the same file (docs/ACCEPTANCE_TPU.md, docs/BENCH_NOTES.md:309-330 for
+venice-real), which the port's result is gated against at 1.05 x.
 """
 
 from __future__ import annotations
@@ -18,7 +20,14 @@ ROWS = {
     "city10k": (["-po"], 1429.33),
     "sphere2500": (["-lm", "-mfnsi", "30"], 34090.37),
     "trees10k": ([], 96531.99),
+    "venice-real": ([], 323432.49),     # BA: LM is the default
 }
+#: the pose-graph rows (the rest are BA)
+POSE_ROWS = ("manhattan3500", "city10k", "sphere2500", "trees10k")
+#: venice-real's initial chi2 and its reference LM trajectory, 5 iterations
+#: (docs/BENCH_NOTES.md:309-330)
+VENICE_INITIAL_CHI2 = 42556937.59
+VENICE_TRAJECTORY = (1343749.0, 429743.9, 351260.7, 327756.2, 323432.8)
 #: the gate on chi2 / golden
 GATE = 1.05
 #: rows whose gate float32 GN with the JAX package's settings misses on the
@@ -47,6 +56,10 @@ def dataset(name: str, directory: str) -> str:
         _gp, _gl, pe, le = D.make_landmark_2d(n_poses=10000, n_landmarks=2000,
                                               world=110.0, obs_radius=8.0, seed=104)
         D.write_g2o_landmark_2d(tmp, pe, le)
+    elif name == "venice-real":
+        cams, pts, obs = D.make_ba_scene_large(n_cams=871, n_points=100000,
+                                               obs_per_point=8, seed=871)
+        D.write_g2o_ba(tmp, cams, pts, obs)
     else:
         raise ValueError(f"no acceptance row {name!r}; rows: {', '.join(ROWS)}")
     os.replace(tmp, path)

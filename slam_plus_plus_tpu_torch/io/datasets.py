@@ -2,7 +2,8 @@
 slam_plus_plus_tpu/io/datasets.py): a Manhattan-world 2D pose graph
 (manhattanOlson analogue), a large city 2D pose graph (city10k / w100K
 class), a 3D sphere walk (sphere2500 analogue), a 2D landmark dataset
-(cityTrees analogue) and a BA scene (venice analogue).
+(cityTrees analogue), BA scenes (venice analogue, and its 871-camera /
+100k-point scale), stereo, intrinsics, spheron and mixed BA files.
 
 Pure numpy, seeded: the same arguments give the same file, byte for byte,
 as the JAX package's generators.
@@ -400,3 +401,217 @@ def write_g2o_ba(path, cams, points, obs, point_noise=0.05, seed=1):
         for (pid, cid, u, v) in obs:
             f.write(f"EDGE_PROJECT_P2MC {n_cams + pid} {cid} {u:.10f} {v:.10f} "
                     f"1 0 1\n")
+
+
+def write_g2o_ba_stereo(path, cams, points, obs, baseline=0.1,
+                        point_noise=0.05, seed=1):
+    """VERTEX_SCAM / VERTEX_XYZ / EDGE_PROJECT_P2SC file.
+
+    obs entries are (point_id, cam_id, u_l, v_l, u_r)."""
+    rng = np.random.default_rng(seed)
+    n_cams = len(cams)
+    with open(path, "w") as f:
+        for c, (pos, q, fx, fy, cx, cy, d) in enumerate(cams):
+            f.write(f"VERTEX_SCAM {c} " +
+                    " ".join(f"{v:.10f}" for v in pos) + " " +
+                    " ".join(f"{v:.10f}" for v in q) +
+                    f" {fx} {fy} {cx} {cy} {d} {baseline}\n")
+        for p, pt in enumerate(points):
+            noisy = pt + rng.normal(0, point_noise, 3)
+            f.write(f"VERTEX_XYZ {n_cams + p} " +
+                    " ".join(f"{v:.10f}" for v in noisy) + "\n")
+        for (pid, cid, ul, vl, ur) in obs:
+            f.write(f"EDGE_PROJECT_P2SC {n_cams + pid} {cid} "
+                    f"{ul:.10f} {vl:.10f} {ur:.10f} 1 0 0 1 0 1\n")
+
+
+def make_ba_stereo_obs(cams, points, baseline=0.1, noise_px=0.3, seed=0):
+    """Stereo observations (u_l, v_l, u_r) for make_ba_scene-style cameras."""
+    rng = np.random.default_rng(seed)
+    obs = []
+    for c, (pos, q, fx, fy, cx, cy, d) in enumerate(cams):
+        qx, qy, qz, qw = q
+        # world->cam rotation = conj of cam->world quat
+        R = _quat_to_R(qw, qx, qy, qz).T
+        for pid, pt in enumerate(points):
+            pc = R @ (pt - pos)
+            if pc[2] < 0.5:
+                continue
+            u = fx * pc[0] / pc[2] + cx
+            v = fy * pc[1] / pc[2] + cy
+            # right camera: world point shifted by -b along cam x-axis
+            pc_r = R @ (pt - baseline * R.T[:, 0] - pos)
+            ur = fx * pc_r[0] / pc_r[2] + cx
+            if 0 <= u < 2 * cx and 0 <= v < 2 * cy and rng.random() < 0.6:
+                obs.append((pid, c, u + rng.normal(0, noise_px),
+                            v + rng.normal(0, noise_px),
+                            ur + rng.normal(0, noise_px)))
+    return obs
+
+
+def _quat_to_R(w, x, y, z):
+    n = np.sqrt(w * w + x * x + y * y + z * z)
+    w, x, y, z = w / n, x / n, y / n, z / n
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ])
+
+
+def write_g2o_ba_intrinsics(path, cams, points, obs, point_noise=0.05, seed=1):
+    """VERTEX_CAM + VERTEX_INTRINSICS + EDGE_PROJECT_P2MCI file: all cameras
+    share intrinsics vertex (the common BAI layout)."""
+    rng = np.random.default_rng(seed)
+    n_cams = len(cams)
+    fx, fy, cx, cy, d = cams[0][2], cams[0][3], cams[0][4], cams[0][5], cams[0][6]
+    with open(path, "w") as f:
+        for c, (pos, q, *_rest) in enumerate(cams):
+            f.write(f"VERTEX_CAM {c} " +
+                    " ".join(f"{v:.10f}" for v in pos) + " " +
+                    " ".join(f"{v:.10f}" for v in q) +
+                    f" {fx} {fy} {cx} {cy} {d}\n")
+        intr_id = n_cams
+        f.write(f"VERTEX_INTRINSICS {intr_id} {fx} {fy} {cx} {cy} {d}\n")
+        for p, pt in enumerate(points):
+            noisy = pt + rng.normal(0, point_noise, 3)
+            f.write(f"VERTEX_XYZ {intr_id + 1 + p} " +
+                    " ".join(f"{v:.10f}" for v in noisy) + "\n")
+        for (pid, cid, u, v) in obs:
+            f.write(f"EDGE_PROJECT_P2MCI {intr_id + 1 + pid} {cid} {intr_id} "
+                    f"{u:.10f} {v:.10f} 1 0 1\n")
+
+
+def make_spheron_scene(n_poses=15, n_points=200, noise=0.01, seed=0):
+    """Spherical-camera scene: poses on a line observing a point cloud; the
+    spheron edge measures the landmark in the camera frame (XYZ)."""
+    rng = np.random.default_rng(seed)
+    points = rng.uniform(-4, 4, (n_points, 3)) + np.array([0, 0, 5.0])
+    poses = []   # (pos, quat_xyzw) world pose
+    obs = []     # (point_id, pose_id, xyz_local)
+    for i in range(n_poses):
+        pos = np.array([0.4 * i, 0.1 * np.sin(i), 0.0])
+        q = np.array([0.0, 0.0, np.sin(0.02 * i), np.cos(0.02 * i)])  # yaw
+        poses.append((pos, q))
+        R = _quat_to_R(q[3], q[0], q[1], q[2]).T  # world->cam
+        for pid in range(n_points):
+            local = R @ (points[pid] - pos)
+            if np.linalg.norm(local) < 12.0 and rng.random() < 0.5:
+                obs.append((pid, i, local + rng.normal(0, noise, 3)))
+    return poses, points, obs
+
+
+def write_g2o_spheron(path, poses, points, obs, point_noise=0.05, seed=1):
+    """Spheron dialect: NO VERTEX_XYZ lines — the reference dispatches files
+    containing VERTEX_XYZ to the BA solver (peeker b_has_ba), so spheron
+    datasets initialize points from the observation edges.  Edges are written
+    in incremental vertex order (first use of each point id introduces it)."""
+    n_poses = len(poses)
+    # order observations so each point id first appears in increasing order
+    first_obs = {}
+    for k, (pid, i, xyz) in enumerate(obs):
+        first_obs.setdefault(pid, k)
+    order = sorted(range(len(obs)),
+                   key=lambda k: (max(obs[k][1], n_poses + obs[k][0]), k))
+    with open(path, "w") as f:
+        for i, (pos, q) in enumerate(poses):
+            f.write(f"VERTEX_SPHERON:QUAT {i} " +
+                    " ".join(f"{v:.10f}" for v in pos) + " " +
+                    " ".join(f"{v:.10f}" for v in q) + "\n")
+        for k in order:
+            (pid, i, xyz) = obs[k]
+            f.write(f"EDGE_SPHERON_XYZ {n_poses + pid} {i} " +
+                    " ".join(f"{v:.10f}" for v in xyz) +
+                    " 1 0 0 1 0 1\n")
+
+
+def make_ba_scene_large(n_cams=871, n_points=100000, obs_per_point=8,
+                        noise_px=0.5, seed=0, f=500.0, cx=320.0, cy=240.0):
+    """Vectorized venice-scale BA scene (reference data/venice871.g2o class:
+    871 cams, ~100k+ points).  Each point is observed by exactly
+    ``obs_per_point`` cameras (the nearest ones facing it), giving a uniform
+    observation degree — the shape the sharded/uniform layouts like, at the
+    pose count of the real dataset.  Returns (cams, points, obs) in
+    make_ba_scene's format."""
+    rng = np.random.default_rng(seed)
+    points = rng.uniform(-2, 2, (n_points, 3))
+    points[:, 2] += 6.0
+
+    angs = 2 * np.pi * np.arange(n_cams) / n_cams
+    pos = np.stack([3.0 * np.sin(angs), 0.5 * np.sin(2 * angs),
+                    3.0 * np.cos(angs) - 0.5], axis=1)          # [C, 3]
+    target = np.array([0.0, 0.0, 6.0])
+    zaxis = target[None, :] - pos
+    zaxis /= np.linalg.norm(zaxis, axis=1, keepdims=True)
+    xaxis = np.cross(np.broadcast_to([0.0, 1.0, 0.0], zaxis.shape), zaxis)
+    xaxis /= np.linalg.norm(xaxis, axis=1, keepdims=True)
+    yaxis = np.cross(zaxis, xaxis)
+    R_wc = np.stack([xaxis, yaxis, zaxis], axis=2)              # [C, 3, 3]
+
+    cams = []
+    for c in range(n_cams):
+        R = R_wc[c]
+        qw = np.sqrt(max(0.0, 1 + np.trace(R))) / 2
+        if qw > 1e-9:
+            q = np.array([(R[2, 1] - R[1, 2]) / (4 * qw),
+                          (R[0, 2] - R[2, 0]) / (4 * qw),
+                          (R[1, 0] - R[0, 1]) / (4 * qw), qw])
+        else:
+            q = np.array([1.0, 0.0, 0.0, 0.0])
+        cams.append((pos[c], q, f, f, cx, cy, 0.0))
+
+    # each point picks obs_per_point cameras, spread deterministically with a
+    # random phase (cameras sit on a ring: nearby indices see similar views)
+    base = rng.integers(0, n_cams, n_points)
+    stride = max(1, n_cams // (3 * obs_per_point))
+    cam_ids = (base[:, None] +
+               stride * np.arange(obs_per_point)[None, :]) % n_cams  # [N, K]
+    pid = np.repeat(np.arange(n_points), obs_per_point)
+    cid = cam_ids.reshape(-1)
+    # project (vectorized): p_cam = R_cw (p - t)
+    Rcw = np.swapaxes(R_wc, 1, 2)[cid]                          # [E, 3, 3]
+    pc = np.einsum("eij,ej->ei", Rcw, points[pid] - pos[cid])
+    pc[:, 2] = np.maximum(pc[:, 2], 0.5)                        # keep in front
+    u = f * pc[:, 0] / pc[:, 2] + cx + rng.normal(0, noise_px, len(pid))
+    v = f * pc[:, 1] / pc[:, 2] + cy + rng.normal(0, noise_px, len(pid))
+    obs = list(zip(pid.tolist(), cid.tolist(), u.tolist(), v.tolist()))
+    return cams, points, obs
+
+
+def write_g2o_ba_mixed(path, cams, points, mono_obs, stereo_obs,
+                       baseline=0.1, point_noise=0.05, seed=1):
+    """Mixed BA file: the first half of the cameras are monocular with a
+    SHARED intrinsics vertex (ternary EDGE_PROJECT_P2MCI), the second half
+    are stereo VERTEX_SCAM (EDGE_PROJECT_P2SC), all observing the same
+    VERTEX_XYZ landmarks — the P2CI + stereo mixed-scene shape the sharded
+    BA generality tests exercise (reference types BA_Types.h:562,705)."""
+    rng = np.random.default_rng(seed)
+    n_cams = len(cams)
+    n_mono = n_cams // 2
+    fx, fy, cx, cy, d = (cams[0][2], cams[0][3], cams[0][4], cams[0][5],
+                         cams[0][6])
+    with open(path, "w") as f:
+        for c, (pos, q, *_rest) in enumerate(cams[:n_mono]):
+            f.write(f"VERTEX_CAM {c} " +
+                    " ".join(f"{v:.10f}" for v in pos) + " " +
+                    " ".join(f"{v:.10f}" for v in q) +
+                    f" {fx} {fy} {cx} {cy} {d}\n")
+        for c, (pos, q, *_rest) in enumerate(cams[n_mono:]):
+            f.write(f"VERTEX_SCAM {n_mono + c} " +
+                    " ".join(f"{v:.10f}" for v in pos) + " " +
+                    " ".join(f"{v:.10f}" for v in q) +
+                    f" {fx} {fy} {cx} {cy} {d} {baseline}\n")
+        intr_id = n_cams
+        f.write(f"VERTEX_INTRINSICS {intr_id} {fx} {fy} {cx} {cy} {d}\n")
+        for p, pt in enumerate(points):
+            noisy = pt + rng.normal(0, point_noise, 3)
+            f.write(f"VERTEX_XYZ {intr_id + 1 + p} " +
+                    " ".join(f"{v:.10f}" for v in noisy) + "\n")
+        for (pid, cid, u, v) in mono_obs:
+            if cid < n_mono:
+                f.write(f"EDGE_PROJECT_P2MCI {intr_id + 1 + pid} {cid} "
+                        f"{intr_id} {u:.10f} {v:.10f} 1 0 1\n")
+        for (pid, cid, ul, vl, ur) in stereo_obs:
+            if cid >= n_mono:
+                f.write(f"EDGE_PROJECT_P2SC {intr_id + 1 + pid} {cid} "
+                        f"{ul:.10f} {vl:.10f} {ur:.10f} 1 0 0 1 0 1\n")

@@ -1,4 +1,4 @@
-"""g2o-dialect parser: the mono BA, SE(2) and SE(3) families.
+"""g2o-dialect parser: the BA, SE(2) and SE(3) families.
 
 Port of slam_plus_plus_tpu/io/parser.py for the ported families:
 
@@ -6,6 +6,13 @@ Port of slam_plus_plus_tpu/io/parser.py for the ported families:
     world->camera form, distortion scaled by the mean focal length,
     reference include/slam_app/ParsePrimitives.h:861-927), ``VERTEX_XYZ`` and
     ``EDGE_PROJECT_P2MC`` / ``EDGE_P2C`` / ``EDGE_P2MC``;
+  * BA with an intrinsics vertex: ``VERTEX_INTRINSICS`` and the ternary
+    ``EDGE_PROJECT_P2MCI`` / ``EDGE_P2CI`` / ``EDGE_P2MCI``;
+  * stereo BA: ``VERTEX_SCAM`` (a ``VERTEX_CAM`` plus the baseline) and
+    ``EDGE_PROJECT_P2SC`` / ``EDGE_P2SC``;
+  * spheron: ``VERTEX_SPHERON:QUAT`` and ``EDGE_SPHERON_XYZ``, whose points
+    are created from their first observation (the files carry no
+    ``VERTEX_XYZ``);
   * SE(2): ``EDGE2`` and its aliases, XY landmark edges (converted to
     range-bearing with identity information, SE2_Types.h:602-615) and RB
     landmark edges;
@@ -17,7 +24,8 @@ CLI does (CIgnoreAllVertexTraits, src/slam_app/Solve2DImpl.cpp:50), SE(2)/SE(3)
 ``VERTEX`` lines are counted and ignored: those vertices are initialized from
 the edges; ``VERTEX_XYZ`` is honoured only when the dataset peeks as BA.  A
 token of a family the port does not handle yet raises ``NotImplementedError``
-naming the ROADMAP.md item that ports it; it is never skipped silently.
+naming the ROADMAP.md item that ports it (only Sim(3) and ROCV are left);
+it is never skipped silently.
 """
 
 from __future__ import annotations
@@ -32,17 +40,10 @@ from slam_plus_plus_tpu_torch import models  # noqa: F401  (registers types)
 from slam_plus_plus_tpu_torch.graph.system import GraphSystem
 from slam_plus_plus_tpu_torch.models.se2_types import xy_measurement_to_polar
 
-_OTHER_BA = "ROADMAP.md Queue 1 item 10 (the other BA edge families)"
 _SIM3_ROCV = "ROADMAP.md Queue 1 item 16 (Sim(3) and ROCV families)"
 
-#: tokens of families the port does not parse yet -> the item that ports them
-_UNPORTED_TOKENS = {
-    **dict.fromkeys(
-        ("VERTEX_SCAM", "EDGE_PROJECT_P2SC", "EDGE_P2SC", "VERTEX_INTRINSICS",
-         "EDGE_PROJECT_P2MCI", "EDGE_P2CI", "EDGE_P2MCI",
-         "VERTEX_SPHERON:QUAT", "EDGE_SPHERON_XYZ"), _OTHER_BA),
-    **dict.fromkeys(("VERTEX_CAM:SIM3", "VERTEX:SIM3"), _SIM3_ROCV),
-}
+#: tokens of families the port does not parse yet (besides ROCV:*)
+_UNPORTED_TOKENS = frozenset(("VERTEX_CAM:SIM3", "VERTEX:SIM3"))
 
 #: SE(2)/SE(3) vertex lines: counted, not used (see the module docstring)
 _IGNORED_VERTEX_TOKENS = frozenset(
@@ -104,6 +105,14 @@ def _invert_cam_pose(pos: np.ndarray, qx, qy, qz, qw) -> np.ndarray:
                   pz + 2 * (qw * uvz + uuvz)])
     aa = _quat_to_axis_angle(qw, qx, qy, qz)
     return np.concatenate([t, aa])
+
+
+def _cam_pose(vals) -> np.ndarray:
+    """The world->camera [t, axis-angle] of a vertex line's <id> <position>
+    <quat xyzw> fields."""
+    pos = np.array([float(v) for v in vals[1:4]])
+    qx, qy, qz, qw = (float(v) for v in vals[4:8])
+    return _invert_cam_pose(pos, qx, qy, qz, qw)
 
 
 class ParseStats:
@@ -227,16 +236,22 @@ def _dispatch_line(tok, vals, system, stats, is_ba):
         z = np.array([float(v) for v in vals[2:5]])
         info = _sym_from_upper([float(v) for v in vals[5:11]], 3)
         _add_edge(system, stats, "edge_pose_landmark3d", (i, j), z, info)
-    elif tok == "VERTEX_CAM":
+    elif tok in ("VERTEX_CAM", "VERTEX_SCAM"):
+        # <id> <position> <quat xyzw> <fx fy cx cy d> [<baseline>]
         vid = int(vals[0])
-        pos = np.array([float(v) for v in vals[1:4]])
-        qx, qy, qz, qw = (float(vals[4]), float(vals[5]),
-                          float(vals[6]), float(vals[7]))
-        fx, fy, cx, cy, d = (float(vals[8]), float(vals[9]),
-                             float(vals[10]), float(vals[11]), float(vals[12]))
-        pose = _invert_cam_pose(pos, qx, qy, qz, qw)
-        state = np.concatenate([pose, [fx, fy, cx, cy, d * 0.5 * (fx + fy)]])
-        system.add_vertex(vid, "cam", state)
+        fx, fy, cx, cy, d = (float(v) for v in vals[8:13])
+        extra = [float(vals[13])] if tok == "VERTEX_SCAM" else []
+        state = np.concatenate([_cam_pose(vals), [fx, fy, cx, cy, d * 0.5 * (fx + fy)],
+                                extra])
+        system.add_vertex(vid, "cam" if tok == "VERTEX_CAM" else "scam", state)
+        stats.vertices += 1
+    elif tok == "VERTEX_INTRINSICS":
+        vid = int(vals[0])
+        fx, fy, cx, cy, d = (float(v) for v in vals[1:6])
+        system.add_vertex(vid, "intrinsics", np.array([fx, fy, cx, cy, d * 0.5 * (fx + fy)]))
+        stats.vertices += 1
+    elif tok == "VERTEX_SPHERON:QUAT":
+        system.add_vertex(int(vals[0]), "spheron", _cam_pose(vals))
         stats.vertices += 1
     elif tok == "VERTEX_XYZ":
         stats.vertices += 1
@@ -249,9 +264,21 @@ def _dispatch_line(tok, vals, system, stats, is_ba):
         z = np.array([float(vals[2]), float(vals[3])])
         info = _sym_from_upper([float(v) for v in vals[4:7]], 2)
         _add_edge(system, stats, "edge_p2c", (cam, pt), z, info)
+    elif tok in ("EDGE_PROJECT_P2MCI", "EDGE_P2CI", "EDGE_P2MCI"):
+        # <pt-id> <cam-id> <intrinsics-id> <ox> <oy> <info 2x2 upper>
+        pt, cam, intr = int(vals[0]), int(vals[1]), int(vals[2])
+        z = np.array([float(vals[3]), float(vals[4])])
+        info = _sym_from_upper([float(v) for v in vals[5:8]], 2)
+        _add_edge(system, stats, "edge_p2ci", (cam, pt, intr), z, info)
+    elif tok in ("EDGE_PROJECT_P2SC", "EDGE_P2SC", "EDGE_SPHERON_XYZ"):
+        # <pt-id> <cam-id> <3 values> <info 3x3 upper>
+        pt, cam = int(vals[0]), int(vals[1])
+        z = np.array([float(v) for v in vals[2:5]])
+        info = _sym_from_upper([float(v) for v in vals[5:11]], 3)
+        etype = "edge_spheron_xyz" if tok == "EDGE_SPHERON_XYZ" else "edge_p2sc"
+        _add_edge(system, stats, etype, (cam, pt), z, info)
     elif tok in _UNPORTED_TOKENS or tok.startswith("ROCV"):
-        item = _UNPORTED_TOKENS.get(tok, _SIM3_ROCV)
-        raise NotImplementedError(f"token {tok}: not ported yet, see {item}")
+        raise NotImplementedError(f"token {tok}: not ported yet, see {_SIM3_ROCV}")
     elif tok == "CONSISTENCY_MARKER":
         stats.markers += 1  # only the incremental engines act on markers
     elif tok in ("EQUIV", "PHASE"):

@@ -454,7 +454,13 @@ class BlockCholeskySolver:
 
     def solve(self, blocks, eta):
         """Factor + solve: blocks [K, B*B] planar (caller's pair order),
-        eta [N, B].  Returns dx [N, B]."""
+        eta [N, B].  Returns dx [N, B].
+
+        This is the JAX package's one-pass ``_factor_solve_impl`` (which the
+        sparse-reduced Schur calls): ``factor`` then ``solve_with_factor``
+        run the same operations in the same order, the rhs descending the
+        levels after the blocks instead of beside them, so no separate
+        one-pass routine is kept."""
         return self.solve_with_factor(self.factor(blocks), eta)
 
     @property

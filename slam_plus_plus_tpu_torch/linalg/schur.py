@@ -21,8 +21,26 @@ JAX package's scatter branch, over chunks of landmarks:
     SC      = dense(Hpp) - sum over chunks W_panel U_panel^T
     dx_l    = planar.bmv(c_inv, eta_l - segsum_col(u^T dx_p[row]))
 
-The sparse-reduced branch (a reduced system past 20,000 dims, or big
-low-density panels) raises NotImplementedError (ROADMAP.md Queue 1 item 13).
+The sparse-reduced branch (slam_plus_plus_tpu/linalg/schur.py:336-470;
+the reference's sparse blocky reduced solve, LinearSolver_Schur.h:1840-1849)
+for a reduced system past ``sparse_reduced_limit`` dims, or panels past
+2 GiB at under 5% block density (venice-real: 11.7 GiB at 0.92%), forms
+SC block-sparsely on the pattern pp pairs + landmark-induced camera pairs:
+
+    w       = planar.bmm(u, c_inv[col])                   [Kpl, Bp*Bl]
+    rhs_p   = eta_p - segsum_row(planar.bmv(w, eta_l[col]))
+    SC      = H_pp - segsum_sc(w[pa] u[pb]^T)             [Ksc, Bp*Bp]
+    dx_p    = BlockCholeskySolver(SC pattern).solve(SC, rhs_p)
+    dx_l    = planar.bmv(c_inv, eta_l - segsum_col(u^T dx_p[row]))
+
+over every (i <= j) pair of each landmark's observations.  When the uniform
+layout has one channel, every landmark has exactly M observations and the
+blocks are in landmark order (mono BA without dummy slots), the clique path
+replaces the gathers by broadcasts over the M slots and the pair products
+by one per-landmark einsum [M*Bp, Bl] @ [Bl, M*Bp], chunked at <=
+CLIQUE_CHUNK landmarks.  No Pallas kernel computes any of this in the JAX
+package: the products are library matmuls and the segment sums
+``index_add_``.
 """
 
 from __future__ import annotations
@@ -30,6 +48,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from slam_plus_plus_tpu_torch.linalg.block_cholesky import BlockCholeskySolver
 from slam_plus_plus_tpu_torch.linalg.dense import DenseScatter, cholesky_solve
 from slam_plus_plus_tpu_torch.ops import planar
 from slam_plus_plus_tpu_torch.ops.panel import build_panels
@@ -41,6 +60,23 @@ SPARSE_REDUCED_LIMIT = 20000
 #: flat branch's bytes per chunk of landmarks (the JAX package's bounds)
 UNIFORM_PANEL_BYTES = 3 << 29
 CHUNK_PANEL_BYTES = 512 << 20
+#: landmarks per chunk of the clique path's pair products (the JAX
+#: package's: a chunk of [CLIQUE_CHUNK, M, M, Bp*Bp] products)
+CLIQUE_CHUNK = 25000
+
+
+def route_sparse_reduced(Np: int, Bp: int, Nl: int, Bl: int, Kpl: int,
+                         dense_reduced=None,
+                         sparse_reduced_limit: int = SPARSE_REDUCED_LIMIT) -> bool:
+    """The JAX package's routing rule: form SC block-sparsely when the
+    reduced system passes sparse_reduced_limit dims, or when the two dense
+    panels would pass 2 GiB at under 5% block density; dense_reduced=True
+    forbids it."""
+    n_reduced = Np * Bp
+    panel_gb = 2.0 * Nl * Bl * n_reduced * 4 / (1 << 30)
+    density = (Kpl * Bp * Bl) / max(Nl * Bl * n_reduced, 1)
+    return (dense_reduced is not True and
+            (n_reduced > sparse_reduced_limit or (panel_gb > 2.0 and density < 0.05)))
 
 
 def _pick_chunk(Nl: int, np_bp: int, Bl: int) -> int:
@@ -53,18 +89,29 @@ def _pick_chunk(Nl: int, np_bp: int, Bl: int) -> int:
 
 
 class SchurSolver:
-    """Dense Schur solve bound to an Assembler's structure and device."""
+    """Schur solve bound to an Assembler's structure and device.
 
-    def __init__(self, asm):
+    dense_reduced / sparse_reduced_limit: the JAX package's constructor
+    arguments (``route_sparse_reduced``).  After construction,
+    ``sparse_reduced`` says whether SC is formed block-sparsely, and then
+    ``clique`` whether the clique path engaged, ``Ksc`` the number of SC
+    blocks and ``reduced_chol`` the block Cholesky of the reduced system
+    (its ``n_levels`` and ``plan.n_bottom``)."""
+
+    def __init__(self, asm, dense_reduced=None,
+                 sparse_reduced_limit: int = SPARSE_REDUCED_LIMIT):
         self.asm = asm
         Np, Bp, Nl, Bl = asm.Np, asm.Bp, asm.Nl, asm.Bl
+        if Nl == 0 or asm.Kpl == 0:
+            raise ValueError("Schur solver requires an eliminated class")
         self.n_reduced = Np * Bp
+        self.uniform = self.clique = False
+        self.sparse_reduced = route_sparse_reduced(Np, Bp, Nl, Bl, asm.Kpl, dense_reduced,
+                                                   sparse_reduced_limit)
+        if self.sparse_reduced:
+            self._build_sparse_reduced()
+            return
         panel_bytes = 2 * Nl * Bl * self.n_reduced * 4
-        density = (asm.Kpl * Bp * Bl) / max(Nl * Bl * self.n_reduced, 1)
-        if self.n_reduced > SPARSE_REDUCED_LIMIT or (panel_bytes > 2 * (1 << 30)
-                                                      and density < 0.05):
-            raise NotImplementedError(
-                "the sparse-reduced Schur branch is ROADMAP.md Queue 1 item 13")
         self._dense_pp = DenseScatter(asm.pp_rows, asm.pp_cols, Np, Bp, asm.device)
         self.uniform = asm.pl_uniform is not None and panel_bytes <= UNIFORM_PANEL_BYTES
         if not self.uniform:
@@ -153,8 +200,135 @@ class SchurSolver:
         dx_l = planar.bmv(c_inv, system.eta_l.index_add(0, cols, ut_dx, alpha=-1), Bl, Bl)
         return dx_p, dx_l
 
+    # ---- the sparse-reduced branch -------------------------------------
+
+    def _build_sparse_reduced(self):
+        """Host plan (the JAX package's, array for array): the SC pattern =
+        pp pairs + the camera pairs of each landmark's (i <= j) observation
+        pairs, the pp blocks' and the pair products' SC block ids, the
+        products' operands as pl block ids, their transpose flags, and the
+        reduced system's block Cholesky plan."""
+        asm = self.asm
+        Np = asm.Np
+        order = np.argsort(asm.pl_cols, kind="stable")
+        rows_s = asm.pl_rows[order]
+        counts = np.bincount(asm.pl_cols, minlength=asm.Nl)
+        starts = np.concatenate([[0], np.cumsum(counts)])
+        pa_l, pb_l = [], []
+        for d in np.unique(counts):
+            if d == 0:
+                continue
+            g = np.flatnonzero(counts == d)
+            ii, jj = np.triu_indices(d)
+            base = starts[g][:, None]
+            pa_l.append((base + ii[None, :]).ravel())
+            pb_l.append((base + jj[None, :]).ravel())
+        pa = np.concatenate(pa_l) if pa_l else np.zeros(0, dtype=np.int64)
+        pb = np.concatenate(pb_l) if pb_l else np.zeros(0, dtype=np.int64)
+        ra, rb = rows_s[pa], rows_s[pb]
+        self.fill_flip = ra > rb
+        fill_keys = np.where(self.fill_flip, rb * Np + ra, ra * Np + rb)
+        pp_keys = asm.pp_rows * Np + asm.pp_cols
+        self.sc_keys = np.unique(np.concatenate([pp_keys, fill_keys]))
+        self.sc_rows, self.sc_cols = self.sc_keys // Np, self.sc_keys % Np
+        self.pp_to_sc = np.searchsorted(self.sc_keys, pp_keys)
+        self.fill_dst = np.searchsorted(self.sc_keys, fill_keys)
+        self.fill_pa, self.fill_pb = order[pa], order[pb]   # pl block ids
+        self.Ksc = len(self.sc_keys)
+        # the JAX package's defaults: no float32 depth cap, no PCG
+        self.reduced_chol = BlockCholeskySolver(self.sc_rows, self.sc_cols, Np, asm.Bp,
+                                                device=asm.device)
+
+        def t(x):
+            return torch.as_tensor(np.asarray(x), device=asm.device)
+
+        self._pl_rows, self._pl_cols = t(asm.pl_rows), t(asm.pl_cols)
+        self._pp_to_sc = t(self.pp_to_sc)
+        self._fill_dst, self._fill_flip = t(self.fill_dst), t(self.fill_flip)
+        self._fill_pa, self._fill_pb = t(self.fill_pa), t(self.fill_pb)
+        # the clique path: one uniform channel, every landmark of degree M,
+        # blocks in landmark order; then the fill arrays above enumerate the
+        # same landmark-major triu order as np.triu_indices(M) per landmark
+        # (setting ``clique`` False afterwards takes the gathered path)
+        ch = asm.pl_uniform
+        self.clique = bool(ch and len(ch) == 1 and len(np.unique(counts)) == 1
+                           and int(counts[0]) == int(ch[0]["M"])
+                           and np.array_equal(order, np.arange(len(order))))
+        if self.clique:
+            M = self.M = int(ch[0]["M"])
+            ii, jj = np.triu_indices(M)
+            self._triu = t(ii * M + jj)
+
+    def _sparse_w_rhs(self, system):
+        """(c_inv, u, w, rhs_p): C^-1 per landmark, the H_pl blocks, W = H_pl
+        C^-1 per block and the reduced rhs eta_p - sum W eta_l."""
+        asm = self.asm
+        Nl, Bp, Bl = asm.Nl, asm.Bp, asm.Bl
+        c_inv = planar.binv(system.ll_blocks, Bl)
+        u = system.pl_blocks[:asm.Kpl]
+        if self.clique:
+            # broadcasts over the uniform M slots, no gathers
+            M = self.M
+            ci = c_inv[:, None, :].expand(Nl, M, Bl * Bl).reshape(Nl * M, Bl * Bl)
+            eta = system.eta_l[:, None, :].expand(Nl, M, Bl).reshape(Nl * M, Bl)
+        else:
+            ci, eta = c_inv[self._pl_cols], system.eta_l[self._pl_cols]
+        w = planar.bmm(u, ci, Bp, Bl, Bl)
+        w_eta = torch.zeros_like(system.eta_p).index_add_(
+            0, self._pl_rows, planar.bmv(w, eta, Bp, Bl))
+        return c_inv, u, w, system.eta_p - w_eta
+
+    def _sparse_sc(self, system, u, w):
+        """SC [Ksc, Bp*Bp]: the pp blocks minus the pair products W_a U_b^T,
+        transposed where the pair runs against the upper orientation."""
+        asm = self.asm
+        Nl, Bp, Bl = asm.Nl, asm.Bp, asm.Bl
+        sc = torch.zeros((self.Ksc, Bp * Bp), dtype=u.dtype, device=u.device)
+        sc[self._pp_to_sc] = system.pp_blocks
+        if self.clique:
+            M = self.M
+            T = M * (M + 1) // 2
+            W4, U4 = w.reshape(Nl, M, Bp, Bl), u.reshape(Nl, M, Bp, Bl)
+            cl = -(-Nl // max(1, -(-Nl // CLIQUE_CHUNK)))
+            for c0 in range(0, Nl, cl):
+                c1 = min(c0 + cl, Nl)
+                clique = torch.einsum("cmil,cnjl->cmnij", W4[c0:c1], U4[c0:c1])
+                pr = clique.reshape(c1 - c0, M * M, Bp * Bp)[:, self._triu].reshape(-1, Bp * Bp)
+                lo, hi = c0 * T, c1 * T       # the fill arrays are landmark-major
+                pr = torch.where(self._fill_flip[lo:hi, None],
+                                 planar.btranspose(pr, Bp, Bp), pr)
+                sc.index_add_(0, self._fill_dst[lo:hi], pr, alpha=-1)
+        else:
+            pr = planar.bmm_A_Bt(w[self._fill_pa], u[self._fill_pb], Bp, Bl, Bp)
+            pr = torch.where(self._fill_flip[:, None], planar.btranspose(pr, Bp, Bp), pr)
+            sc.index_add_(0, self._fill_dst, pr, alpha=-1)
+        return sc
+
+    def _sparse_factor_solve(self, sc, rhs_p):
+        """dx_p [Np, Bp] from the block Cholesky of SC."""
+        return self.reduced_chol.solve(sc, rhs_p)
+
+    def _sparse_back_substitute(self, system, c_inv, u, dx_p):
+        """(dx_p, dx_l): dx_l = C^-1 (eta_l - sum U^T dx_p) per landmark."""
+        asm = self.asm
+        Nl, Bp, Bl = asm.Nl, asm.Bp, asm.Bl
+        ut_dx = planar.bmv_At(u, dx_p[self._pl_rows], Bp, Bl)
+        if self.clique:
+            ut_dx = ut_dx.reshape(Nl, self.M, Bl).sum(1)
+        else:
+            ut_dx = torch.zeros_like(system.eta_l).index_add_(0, self._pl_cols, ut_dx)
+        return dx_p, planar.bmv(c_inv, system.eta_l - ut_dx, Bl, Bl)
+
+    def _solve_sparse(self, system):
+        c_inv, u, w, rhs_p = self._sparse_w_rhs(system)
+        sc = self._sparse_sc(system, u, w)
+        return self._sparse_back_substitute(system, c_inv, u,
+                                            self._sparse_factor_solve(sc, rhs_p))
+
     def solve(self, system):
         """(dx_p [Np, Bp], dx_l [Nl, Bl]) for a (damped) BlockSystem."""
+        if self.sparse_reduced:
+            return self._solve_sparse(system)
         if not self.uniform:
             return self._solve_flat(system)
         c_inv, Ut, Wt = self._uniform_panels(system)

@@ -1,5 +1,6 @@
 """Vertex/edge types.  Importing this package registers the ported types:
-the mono BA family (``cam``, ``xyz``, ``edge_p2c``) and the SE(2)/SE(3)
+the BA families (mono ``edge_p2c``, intrinsics ``edge_p2ci``, stereo
+``edge_p2sc``, spheron ``edge_spheron_xyz``) and the SE(2)/SE(3)
 pose-graph and landmark families."""
 
 from slam_plus_plus_tpu_torch.models import ba_types, se2_types, se3_types  # noqa: F401

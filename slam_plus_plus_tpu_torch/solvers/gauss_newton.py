@@ -11,7 +11,9 @@ CNonlinearSolver_Lambda::Optimize, include/slam/NonlinearSolver_Lambda.h:476-668
 
 The linear backend is chosen per structure, as in the JAX package:
 
-  * the dense Schur complement whenever a landmark class is split off;
+  * the Schur complement whenever a landmark class is split off
+    (linalg/schur.py: dense, or block-sparse with the block Cholesky for
+    the reduced system on the sparse-reduced branch, venice-real's);
   * a dense direct Cholesky for float64 systems of <= 6000 scalar dims
     (float32 never takes it: an unequilibrated pose-graph lambda has
     kappa ~1e8, beyond a single-precision direct factor);
@@ -23,10 +25,11 @@ The float32 settings are the JAX package's: the PCG runs at most 12 trips
 and stops at 1e-4 relative residual.  With them float32 GN on the card ends
 manhattan3500 above 1.05 x the reference's chi2 (ROADMAP.md Queue 3).
 
-The host scipy oracle of the JAX package (``linear_solver="scipy"``) is not
-ported (ROADMAP.md Queue 1 item 15).  Host syncs per GN iteration: one read
-of |dx| and chi2 together, plus, in float32 on the block Cholesky, one read
-of the bottom factor's status.
+Left for later slices: the host scipy oracle of the JAX package
+(``linear_solver="scipy"``, with linalg/bsr.py), and the A and SPCG solvers
+(ROADMAP.md Queue 1).  Host syncs per GN iteration: one read of |dx| and
+chi2 together, plus, in float32 on a block Cholesky (the pose-graph backend
+or the sparse-reduced Schur's), one read of the bottom factor's status.
 """
 
 from __future__ import annotations
@@ -116,6 +119,7 @@ class GaussNewtonSolver:
         if not system.edge_stores:
             raise ValueError("cannot build a solver over an empty system "
                              "(no edges); add edges first")
+        t0 = time.perf_counter()
         pin_precision()
         self.system = system
         self.settings = settings or SolverSettings()
@@ -141,6 +145,7 @@ class GaussNewtonSolver:
             self._spmv = LambdaSpmv(asm)
             self.pcg_iterations = PCG_ITERATIONS if f32 else 0
         self.pcg_taken = []      # PCG iterations of each sparse solve (device scalars)
+        self.timing["construct"] = time.perf_counter() - t0
 
     def _solve(self, bs):
         """(dx_p [Np, Bp], dx_l [Nl, Bl]) for a (damped) BlockSystem."""

@@ -16,11 +16,13 @@ CNonlinearSolver_Lambda_LM, include/slam/NonlinearSolver_Lambda_LM.h:97-226,
         bad:  alpha *= nu; nu *= 2; x <- x_saved;
               if fail: fail -= 1; max_iters += 1
 
-Each trial (damp, the GN solver's linear solve — Schur, dense or block
-Cholesky —, ⊞, re-assembly at the new point, the rho scalars) runs on the
-device and ends in ONE host sync that reads |dx|, the new chi2 and the rho
-denominator together (the float32 block Cholesky adds one read of its
-bottom factor's status).
+Each trial (damp, the GN solver's linear solve — the dense or the
+sparse-reduced Schur, the dense factor or the block Cholesky —, ⊞,
+re-assembly at the new point, the rho scalars) runs on the device and ends
+in ONE host sync that reads |dx|, the new chi2 and the rho denominator
+together (a float32 block Cholesky adds one read of its bottom factor's
+status).  ``solver._schur.sparse_reduced`` tells which Schur branch a BA
+problem takes.
 """
 
 from __future__ import annotations
@@ -65,7 +67,8 @@ class LevenbergMarquardtSolver(GaussNewtonSolver):
         defaults are the reference's final-optimization settings.
 
         Returns (final_chi2, iterations_run).  ``self.trial_log`` keeps
-        (|dx|, trial chi2, rho denominator) of every trial of the run."""
+        (|dx|, trial chi2, rho denominator) of every trial of the run,
+        ``self.initial_chi2`` the chi2 it started from."""
         t0 = time.perf_counter()
         asm = self.asm
         states = asm.snapshot_states(self.system)
@@ -74,7 +77,7 @@ class LevenbergMarquardtSolver(GaussNewtonSolver):
         alpha = float(base.max_hdiag) * self.TAU
         nu = 2.0
         fail = 10
-        last_error = float(base.chi2)
+        last_error = self.initial_chi2 = float(base.chi2)
         if verbose:
             print(f"alpha: {alpha:f}\ninitial chi2: {last_error:f}")
 

@@ -130,8 +130,8 @@ def test_pose_graph_generator_is_byte_identical(tmp_path, family):
 
 @pytest.mark.parametrize("line, item", [
     ("VERTEX_CAM:SIM3 0 0 0 0 0 0 0 1 1 500 500 320 240 0", "item 16"),
-    ("VERTEX_SCAM 0 0 0 0 0 0 0 1 500 500 320 240 0 0.1", "item 10"),
-    ("EDGE_PROJECT_P2MCI 9 0 10 320.0 240.0 1 0 1", "item 10"),
+    ("VERTEX:SIM3 0 0 0 0 0 0 0 1 1", "item 16"),
+    ("ROCV:RECEIVER 1 0 0 0 0 0 0", "item 16"),
     ("ROCV:RANGE 0 1 2.5 1", "item 16"),
 ])
 def test_unported_token_raises(tmp_path, line, item):

@@ -140,7 +140,7 @@ PORT_MODULES = (
     "linalg.spmv", "manifolds.camera", "manifolds.se2", "manifolds.se3",
     "manifolds.so3", "models.ba_types", "models.se2_types", "models.se3_types",
     "models.types", "ops.p2c", "ops.panel", "ops.planar", "robust.losses",
-    "solvers.gauss_newton", "solvers.lm")
+    "solvers.dogleg", "solvers.gauss_newton", "solvers.lm")
 
 
 def test_port_never_imports_jax():
