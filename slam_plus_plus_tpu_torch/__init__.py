@@ -5,13 +5,14 @@ the same relative path.  It imports torch, numpy and scipy, never JAX: the
 JAX package stays in the repository as the reference the port's tests hold
 it against.
 
-Ported so far: batch bundle adjustment (mono, intrinsics, stereo and
-spheron g2o input; the uniform per-landmark and the generic assembly; the
-dense and the sparse-reduced Schur solves; Lambda-LM and the Lambda-DL
-dogleg) and batch pose-graph SLAM (SE(2)/SE(3), landmarks, GN over the
-MIS-Schur block Cholesky), with the two Pallas kernels of the BA path
-rewritten as CUDA C++ for Hopper (``csrc/``).  ROADMAP.md lists what is
-still to be ported.
+Ported so far: every batch solver — batch bundle adjustment (mono,
+intrinsics, stereo and spheron g2o input; the uniform per-landmark and the
+generic assembly; the dense and the sparse-reduced Schur solves;
+Lambda-LM and the Lambda-DL dogleg), batch pose-graph SLAM (SE(2)/SE(3),
+landmarks, GN over the MIS-Schur block Cholesky), the A and SPCG solvers,
+the host scipy oracle, and the Sim(3) and ROCV families — with the two
+Pallas kernels of the BA path rewritten as CUDA C++ for Hopper
+(``csrc/``).  ROADMAP.md lists what is still to be ported.
 
 Public API:
     parse_g2o / peek_dataset  — dataset ingestion (g2o dialect)

@@ -1,23 +1,33 @@
 """Batch CLI of the port (the batch paths of slam_plus_plus_tpu/app/main.py,
 reference src/slam_app/Main.cpp:41).
 
-    python -m slam_plus_plus_tpu_torch.app.main -i file.g2o [-po] [-lm | -dl]
-        [-v] [-s] [-mfnsi N] [-fnset X] [--device cuda|cpu]
+    python -m slam_plus_plus_tpu_torch.app.main -i file.g2o [-po] [-A | -lm | -dl]
+        [-v] [-s] [-mfnsi N] [-fnset X] [-us] [-nb] [-dx FILE] [-gt FILE]
+        [--rpe-delta N] [--device cuda|cpu]
 
   -i <file>      input dataset (g2o dialect: mono, intrinsics, stereo and
-                 spheron BA; SE(2) and SE(3) pose graphs and landmarks)
+                 spheron BA; SE(2) and SE(3) pose graphs and landmarks; ROCV)
   -po            pose-only (expect no landmarks; informational)
+  -A             the A solver: GN over the rectangular Jacobian, solved by
+                 LSQR on the host (solvers/a_solver.py)
   -lm, -,\\lm    Lambda-LM; the default is LM for BA datasets and GN
                  (Lambda) otherwise, as the reference (Main.cpp:205-210)
   -dl, -,\\dl    Lambda-DL, the dogleg trust-region solver
   -mfnsi <N>     max final-optimization iterations     (default 5)
   -fnset <e>     final-optimization dx threshold       (default 0.01)
+  -us            use the Schur complement (accepted; the solvers pick it
+                 for landmark problems by themselves, as the JAX CLI's do)
+  -nb            no bitmaps (accepted; the port draws none)
+  -dx <file>     write the solution (default solution.txt; '' disables)
+  -gt <file>     ground truth (g2o vertex lines or a solution file): print
+                 ATE and RPE after the solve; --rpe-delta sets RPE's step
   -s / -v        silent / verbose
   --device       cuda (default; float32) or cpu (float64).  There is no
                  fallback: cuda without a card is an error.
 
 The printed lines match the JAX CLI's: ``initial denormalized chi2 error``
-(with -v), ``solver took N iterations`` and ``denormalized chi2 error``.
+(with -v), ``solver took N iterations``, ``denormalized chi2 error``, the
+ATE/RPE lines and ``solution written to``.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ def build_argparser():
         description="batch sparse nonlinear least squares (SLAM / BA) on PyTorch/CUDA")
     p.add_argument("-i", "--input", required=True)
     p.add_argument("-po", "--pose-only", action="store_true")
+    p.add_argument("-A", dest="solver", action="store_const", const="a")
     p.add_argument("-lm", "-,\\lm", dest="solver", action="store_const",
                    const="lambda_lm")
     p.add_argument("-dl", "-,\\dl", dest="solver", action="store_const",
@@ -41,14 +52,21 @@ def build_argparser():
     p.add_argument("-fnset", type=float, default=0.01)
     p.add_argument("-s", "--silent", action="store_true")
     p.add_argument("-v", "--verbose", action="store_true")
+    p.add_argument("-us", "--use-schur", action="store_true")
+    p.add_argument("-nb", "--no-bitmaps", action="store_true")
+    p.add_argument("-dx", "--solution", default="solution.txt")
+    p.add_argument("-gt", "--ground-truth", default=None)
+    p.add_argument("--rpe-delta", type=int, default=1)
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     return p
 
 
 def run(args):
-    """Parse, solve (GN, Lambda-LM or Lambda-DL), print the reference CLI's
-    lines.  Returns (final chi2, iterations, the solver)."""
+    """Parse, solve (GN, A, Lambda-LM or Lambda-DL), print the reference
+    CLI's lines, evaluate against -gt and write -dx.  Returns (final chi2,
+    iterations, the solver)."""
     from slam_plus_plus_tpu_torch.io.parser import parse_g2o, peek_dataset
+    from slam_plus_plus_tpu_torch.solvers.a_solver import ASolver
     from slam_plus_plus_tpu_torch.solvers.dogleg import DoglegSolver
     from slam_plus_plus_tpu_torch.solvers.gauss_newton import GaussNewtonSolver
     from slam_plus_plus_tpu_torch.solvers.lm import LevenbergMarquardtSolver
@@ -60,22 +78,71 @@ def run(args):
         print(f"dataset: {args.input} ({', '.join(fam) or 'unknown'})")
     t0 = time.perf_counter()
     system = parse_g2o(args.input)
+    t_parse = time.perf_counter() - t0
     if not args.silent:
         print(f"parsed {system.num_vertices} vertices, {system.num_edges} "
-              f"edges in {time.perf_counter() - t0:.3f}s")
+              f"edges in {t_parse:.3f}s")
 
     t0 = time.perf_counter()
     kind = args.solver or ("lambda_lm" if is_ba else "lambda")
     cls = {"lambda_lm": LevenbergMarquardtSolver, "lambda_dl": DoglegSolver,
-           "lambda": GaussNewtonSolver}[kind]
+           "a": ASolver, "lambda": GaussNewtonSolver}[kind]
     solver = cls(system, device=args.device)
+    solver.timing["parse"] = t_parse
     if args.verbose:
         print(f"initial denormalized chi2 error: {solver.chi2():.2f}")
     chi2, iters = solver.optimize(args.mfnsi, args.fnset, verbose=args.verbose)
     print(f"done. it took {time.perf_counter() - t0:.5f} sec")
     print(f"solver took {iters} iterations")
     print(f"denormalized chi2 error: {chi2:.2f}")
+    if args.ground_truth:
+        _evaluate_vs_ground_truth(system, args.ground_truth, args.rpe_delta)
+    if args.solution:
+        _dump_solution(system, args.solution)
+        if not args.silent:
+            print(f"solution written to {args.solution}")
     return chi2, iters, solver
+
+
+def _evaluate_vs_ground_truth(system, gt_path, rpe_delta):
+    """ATE/RPE of the solved trajectory against a ground-truth file (g2o
+    vertex lines or a plain solution file), as the JAX CLI's
+    _evaluate_vs_ground_truth (reference CErrorEvaluation,
+    include/slam/ErrorEval.h:40,138,208-240, with Kabsch alignment)."""
+    import numpy as np
+    from slam_plus_plus_tpu_torch.evaluation.error_eval import evaluate_trajectory
+
+    def load_states(path):
+        rows = []
+        with open(path) as f:
+            for line in f:
+                tok = line.split()
+                if not tok:
+                    continue
+                if tok[0].upper().startswith("VERTEX"):
+                    rows.append((int(tok[1]), np.array([float(x) for x in tok[2:]])))
+                elif all(c in "0123456789.eE+- " for c in line.strip()):
+                    rows.append((len(rows), np.array([float(x) for x in tok])))
+        rows.sort(key=lambda r: r[0])
+        return [r[1] for r in rows]
+
+    gt = load_states(gt_path)
+    est = [system.vertex_state(gid) for gid in sorted(system.vertex_directory)]
+    n = min(len(gt), len(est))
+    dim = min(min(len(g) for g in gt[:n]), min(len(e) for e in est[:n]))
+    m = evaluate_trajectory(np.stack([e[:dim] for e in est[:n]]),
+                            np.stack([g[:dim] for g in gt[:n]]), delta=rpe_delta)
+    print(f"ATE RMSE: {m['ate_rmse']:.6f}")
+    print(f"RPE trans RMSE: {m['rpe_trans_rmse']:.6f}  "
+          f"rot RMSE: {m['rpe_rot_rmse']:.6f}  (delta={rpe_delta})")
+
+
+def _dump_solution(system, path):
+    """Vertex states in global-id order (reference CFlatSystem::Dump), in
+    the JAX CLI's format."""
+    with open(path, "w") as f:
+        for gid in sorted(system.vertex_directory):
+            f.write(" ".join(f"{v:.10f}" for v in system.vertex_state(gid)) + "\n")
 
 
 def main(argv=None) -> int:

@@ -1,4 +1,4 @@
-"""Configuration: dtype and device policy.
+"""Configuration: dtype and device policy, and the solver settings.
 
 The reference is double precision everywhere.  Policy, as in the JAX
 package (slam_plus_plus_tpu/config.py):
@@ -10,37 +10,47 @@ The device is always explicit: every entry point takes a ``device`` and
 there is no fallback from one device to another.  Nothing here sets a global
 default dtype, because tests share worker processes.
 
-Of the JAX package's SolverConfig the port carries the two fields that have
-a second value here, in ``SolverSettings``: the linear backend and the
-landmark-class split.
+Of the JAX package's SolverConfig the port carries, in ``SolverSettings``,
+the fields that a caller of the port sets to a second value: the linear
+backend, the landmark split and the edge layout.  The others keep the JAX
+package's defaults as constants (the float32 PCG's 12 trips, LM's damping
+derived from the diagonal, each edge type's own robust loss) until a
+caller needs another value; ``dogleg_radius`` is read nowhere in the JAX
+package.
 """
 
 from __future__ import annotations
 
 import dataclasses
-
 import torch
+
+LINEAR_SOLVERS = ("auto", "block_cholesky", "scipy")
 
 
 @dataclasses.dataclass(frozen=True)
 class SolverSettings:
-    """linear_solver: "auto" picks as the JAX package does (Schur when a
-    landmark class is split off, dense direct for small float64 systems,
-    else the MIS-Schur block Cholesky); "block_cholesky" takes the block
-    Cholesky in place of the dense direct factor.  schur_split: "auto"
-    splits the landmark class off when the pose dims stay <= 20000; "on"
-    always, "off" never."""
+    """linear_solver, as the JAX package's GaussNewtonSolver reads it:
+    "auto" picks Schur when a landmark class is split off, the dense direct
+    factor for small float64 systems, else the MIS-Schur block Cholesky;
+    "block_cholesky" takes the block Cholesky in place of the dense factor;
+    "scipy" forces the host splu oracle (linalg/host_solver.py).
+
+    schur_split: "auto" splits the landmark class off when the pose dims
+    stay <= 20000; "on" always, "off" never.  edge_layout: "auto" lets a
+    mono BA problem take K1's uniform layout, "flat" keeps parse order."""
 
     linear_solver: str = "auto"
     schur_split: str = "auto"
+    edge_layout: str = "auto"
 
     def __post_init__(self):
-        if self.linear_solver not in ("auto", "block_cholesky"):
-            raise ValueError(f"linear_solver {self.linear_solver!r}: the port has "
-                             "auto and block_cholesky (the host scipy oracle is "
-                             "ROADMAP.md Queue 1 item 15)")
+        if self.linear_solver not in LINEAR_SOLVERS:
+            raise ValueError(f"linear_solver {self.linear_solver!r}: one of "
+                             f"{', '.join(LINEAR_SOLVERS)}")
         if self.schur_split not in ("auto", "on", "off"):
             raise ValueError(f"schur_split {self.schur_split!r}: auto, on or off")
+        if self.edge_layout not in ("auto", "flat"):
+            raise ValueError(f"edge_layout {self.edge_layout!r}: auto or flat")
 
 
 def default_dtype(device) -> torch.dtype:
@@ -62,4 +72,3 @@ def pin_precision() -> None:
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-

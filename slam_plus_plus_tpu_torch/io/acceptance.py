@@ -1,7 +1,9 @@
 """The batch rows of docs/ACCEPTANCE_TPU.md that the port runs, made by the
-port's generators: the four pose-graph rows at the settings of
-scripts/acceptance.py, and the BA row venice-real (871 cameras, 100,000
-points, 800,000 observations) as scripts/venice_real_tpu.py:38-41 makes it.
+port's generators: the pose-graph rows at the settings of
+scripts/acceptance.py (manhattan3500, city10k, sphere2500, trees10k, and
+intel-scale, garage3d and w100k, the reference suite's largest pose graph
+at 100,000 poses), and the BA row venice-real (871 cameras, 100,000 points,
+800,000 observations) as scripts/venice_real_tpu.py:38-41 makes it.
 
 Each row: the CLI flags it runs with and the reference binary's final chi2
 on the same file (docs/ACCEPTANCE_TPU.md, docs/BENCH_NOTES.md:309-330 for
@@ -21,9 +23,14 @@ ROWS = {
     "sphere2500": (["-lm", "-mfnsi", "30"], 34090.37),
     "trees10k": ([], 96531.99),
     "venice-real": ([], 323432.49),     # BA: LM is the default
+    "intel-scale": (["-po"], 392.09),
+    "garage3d": (["-po", "-lm", "-mfnsi", "20"], 3.74),
+    "w100k": (["-po"], 213795479.57),
 }
-#: the pose-graph rows (the rest are BA)
+#: the pose-graph rows of the first pose-graph slice
 POSE_ROWS = ("manhattan3500", "city10k", "sphere2500", "trees10k")
+#: the pose-graph rows added with the rest of batch solving
+REST_ROWS = ("w100k", "intel-scale", "garage3d")
 #: venice-real's initial chi2 and its reference LM trajectory, 5 iterations
 #: (docs/BENCH_NOTES.md:309-330)
 VENICE_INITIAL_CHI2 = 42556937.59
@@ -56,6 +63,15 @@ def dataset(name: str, directory: str) -> str:
         _gp, _gl, pe, le = D.make_landmark_2d(n_poses=10000, n_landmarks=2000,
                                               world=110.0, obs_radius=8.0, seed=104)
         D.write_g2o_landmark_2d(tmp, pe, le)
+    elif name == "intel-scale":
+        poses, edges = D.make_manhattan_2d(n_poses=800, seed=105, loop_prob=0.4)
+        D.write_g2o_2d(tmp, edges, poses)
+    elif name == "garage3d":
+        _gt, edges = D.make_garage_3d(seed=9)
+        D.write_g2o_3d_axisangle(tmp, edges)
+    elif name == "w100k":
+        poses, edges = D.make_city_2d(n_poses=100000, seed=77)
+        D.write_g2o_2d(tmp, edges, poses)
     elif name == "venice-real":
         cams, pts, obs = D.make_ba_scene_large(n_cams=871, n_points=100000,
                                                obs_per_point=8, seed=871)

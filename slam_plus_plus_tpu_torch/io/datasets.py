@@ -3,9 +3,13 @@ slam_plus_plus_tpu/io/datasets.py): a Manhattan-world 2D pose graph
 (manhattanOlson analogue), a large city 2D pose graph (city10k / w100K
 class), a 3D sphere walk (sphere2500 analogue), a 2D landmark dataset
 (cityTrees analogue), BA scenes (venice analogue, and its 871-camera /
-100k-point scale), stereo, intrinsics, spheron and mixed BA files.
+100k-point scale), stereo, intrinsics, spheron and mixed BA files, a
+range-only constant-velocity (ROCV) scene, a parking-garage SE(3) graph,
+and two Sim(3) scenes, which have no file format in either package and are
+returned as vertex and edge lists for ``fill_system``.
 
-Pure numpy, seeded: the same arguments give the same file, byte for byte,
+Seeded numpy (the garage's relative poses go through the port's own se3 in
+float64 on the CPU): the same arguments give the same file, byte for byte,
 as the JAX package's generators.
 """
 
@@ -615,3 +619,188 @@ def write_g2o_ba_mixed(path, cams, points, mono_obs, stereo_obs,
             if cid >= n_mono:
                 f.write(f"EDGE_PROJECT_P2SC {intr_id + 1 + pid} {cid} "
                         f"{ul:.10f} {vl:.10f} {ur:.10f} 1 0 0 1 0 1\n")
+
+
+def make_rocv_scene(n_steps=100, n_transmitters=6, range_noise=0.02,
+                    world=10.0, seed=0):
+    """Range-only constant-velocity tracking scene: one receiver moving with
+    piecewise-constant velocity, ranged against fixed transmitters."""
+    rng = np.random.default_rng(seed)
+    tx = rng.uniform(-world, world, (n_transmitters, 3))
+    pos = np.zeros(3)
+    vel = np.array([0.5, 0.3, 0.0])
+    dt = 0.5
+    traj = []
+    for k in range(n_steps):
+        if k % 20 == 10:
+            vel = vel + rng.normal(0, 0.1, 3)
+        pos = pos + dt * vel
+        traj.append((pos.copy(), vel.copy()))
+    ranges = []
+    for k, (p, v) in enumerate(traj):
+        for t in range(n_transmitters):
+            if rng.random() < 0.7:
+                r = np.linalg.norm(p - tx[t]) + rng.normal(0, range_noise)
+                ranges.append((k, t, r))
+    return tx, traj, ranges, dt
+
+
+def write_g2o_rocv(path, tx, traj, ranges, dt, cv_info=100.0,
+                   range_info=2500.0, prior_info=1e6):
+    """ROCV:* dialect file."""
+    n_steps = len(traj)
+    with open(path, "w") as f:
+        # receiver vertices first (ids 0..n-1), transmitters after
+        for k, (p, v) in enumerate(traj):
+            vals = np.concatenate([p, v])
+            f.write(f"ROCV:RECEIVER {k} " +
+                    " ".join(f"{x:.10f}" for x in vals) + "\n")
+        for t in range(len(tx)):
+            f.write(f"ROCV:TRANSMITTER {n_steps + t} " +
+                    " ".join(f"{x:.10f}" for x in tx[t]) + " 0 0 0\n")
+            sq = np.sqrt(prior_info)
+            f.write(f"ROCV:TRANSMITTER_UF {n_steps + t} "
+                    f"{sq} 0 0 {sq} 0 {sq}\n")
+        info6 = np.eye(6) * cv_info
+        ut6 = [f"{info6[a, b]}" for a in range(6) for b in range(a, 6)]
+        for k in range(1, n_steps):
+            f.write(f"ROCV:DELTA_TIME {k - 1} {k} {dt} " + " ".join(ut6) + "\n")
+        for (k, t, r) in ranges:
+            f.write(f"ROCV:RANGE {k} {n_steps + t} {r:.10f} {range_info}\n")
+
+
+def _se3_relative(a, b):
+    """b in a's frame for rows of [n, 6] float64 poses, through the port's
+    se3 (the JAX generator uses the JAX se3 the same way)."""
+    import torch
+    from slam_plus_plus_tpu_torch.manifolds import se3
+    return se3.relative_to(torch.from_numpy(np.asarray(a, dtype=np.float64)),
+                           torch.from_numpy(np.asarray(b, dtype=np.float64))).numpy()
+
+
+def make_garage_3d(n_loops=8, per_loop=200, climb=0.02, radius=8.0,
+                   trans_noise=0.01, rot_noise=0.005, seed=9):
+    """Parking-garage-class SE(3) pose graph (reference regression family
+    `parking-garage.g2o`, scripts/tests/unit_tests.sh:170-175,256-262): a
+    helical ramp with vertical loop closures between consecutive floors,
+    interleaved with the odometry.  Returns (gt_poses [n,6], edges) with
+    edges (i, j, z[6] axis-angle relative pose)."""
+    rng = np.random.default_rng(seed)
+    n = n_loops * per_loop
+    gt = []
+    for k in range(n):
+        th = 2 * np.pi * (k % per_loop) / per_loop
+        pos = np.array([radius * np.cos(th), radius * np.sin(th),
+                        climb * k])
+        gt.append(np.concatenate([pos, [0.0, 0.0, th + np.pi / 2]]))
+    gt = np.array(gt)
+
+    pairs = []
+    for k in range(1, n):
+        pairs.append((k - 1, k))
+        if k >= per_loop and k % 10 == 0:
+            pairs.append((k - per_loop, k))
+    idx = np.array(pairs)
+    rel = _se3_relative(gt[idx[:, 0]], gt[idx[:, 1]])
+    edges = []
+    for (i, j), z in zip(pairs, rel):
+        z = z.copy()
+        z[:3] += rng.normal(0, trans_noise, 3)
+        z[3:] += rng.normal(0, rot_noise, 3)
+        edges.append((i, j, z))
+    return gt, edges
+
+
+def write_g2o_3d_axisangle(path, edges, info_scale=100.0):
+    """EDGE3:AXISANGLE dialect writer (identity*scale information)."""
+    info = np.eye(6) * info_scale
+    with open(path, "w") as f:
+        for (i, j, z) in edges:
+            up = " ".join(f"{info[a][b]:.1f}"
+                          for a in range(6) for b in range(a, 6))
+            zs = " ".join(f"{v:.9f}" for v in z)
+            f.write(f"EDGE3:AXISANGLE {i} {j} {zs} {up}\n")
+
+
+def fill_system(system, vertices, edges):
+    """Add (id, type, state) vertices and (type, ids, z, info) edges to a
+    GraphSystem (the port's or the JAX package's: the same API)."""
+    for vid, tname, state in vertices:
+        system.add_vertex(vid, tname, state)
+    for ename, ids, z, info in edges:
+        system.add_edge(ename, ids, z, info)
+    return system
+
+
+def make_sim3_chain(n=12, seed=44):
+    """A noisy chain of n cam_sim3 vertices with a loop closure between the
+    first and the last (the JAX package's Sim(3) pose-graph test scene,
+    tests/test_model_families.py:80-117): each step [1, 0.1, 0, 0.02, 0.03,
+    0.1] with scale 1.01, measurements with 0.01 translation noise and
+    information 100 I, every vertex but the first 0.05 off.  Built with the
+    port's sim3 in float64 on the CPU.  Returns (vertices, edges)."""
+    import torch
+    from slam_plus_plus_tpu_torch.manifolds import sim3
+
+    rng = np.random.default_rng(seed)
+    step = torch.tensor([1.0, 0.1, 0.0, 0.02, 0.03, 0.1, 1.01], dtype=torch.float64)
+    gt = [torch.tensor([0.0, 0, 0, 0, 0, 0, 1.0], dtype=torch.float64)]
+    for _ in range(1, n):
+        gt.append(sim3.compose(gt[-1], step))
+    intr = [500.0, 500.0, 320.0, 240.0, 0.0]
+    vertices = [(i, "cam_sim3", np.concatenate(
+        [gt[i].numpy() + (rng.normal(0, 0.05, 7) if i else 0.0), intr])) for i in range(n)]
+    edges = []
+    for i, j in [(i, i + 1) for i in range(n - 1)] + [(0, n - 1)]:
+        z = sim3.relative_to(gt[i], gt[j]).numpy()
+        z[:3] += rng.normal(0, 0.01, 3)
+        edges.append(("edge_pose_cam_sim3", (i, j), z, np.eye(7) * 100.0))
+    return vertices, edges
+
+
+def make_sim3_invdist_ba(n_cams=3, n_points=20, n_obs=3, seed=55):
+    """Inverse-distance Sim(3) BA (the shape of the JAX package's test,
+    tests/test_model_families.py:120-158): cam_sim3 cameras 0.3 apart along
+    x, points 4..7 in front, each an inv_dist4 owned by its nearest camera,
+    which sees it through an LS edge (edge_p2c_invdist_ls), and seen by the
+    n_obs - 1 cameras next to it through LO edges (edge_p2c_invdist_lo);
+    0.3 px noise, unit information.  The inverse distances start 10% off,
+    the cameras but the first 0.01 off in each Sim(3) parameter.  Returns
+    (vertices, edges)."""
+    import torch
+    from slam_plus_plus_tpu_torch.manifolds import sim3
+    from slam_plus_plus_tpu_torch.models.sim3_types import _project_sim3
+
+    rng = np.random.default_rng(seed)
+    gt = np.zeros((n_cams, 12))
+    gt[:, 0] = -0.3 * np.arange(n_cams)
+    gt[:, 3:6] = rng.normal(0, 0.01, (n_cams, 3))
+    gt[:, 6] = 1.0
+    gt[:, 7:] = [500.0, 500.0, 320.0, 240.0, 0.0]
+    span = 0.3 * (n_cams - 1)
+    pts = np.stack([rng.uniform(-0.5, span + 0.5, n_points), rng.uniform(-1, 1, n_points),
+                    rng.uniform(4, 7, n_points)], axis=1)
+    owner = np.clip(np.rint(pts[:, 0] / 0.3), 0, n_cams - 1).astype(np.int64)
+    # n_obs consecutive cameras around the owner, the owner among them
+    first = np.clip(owner - (n_obs - 1) // 2, 0, n_cams - n_obs)
+    obs_cam = first[:, None] + np.arange(n_obs)
+    t = torch.from_numpy
+    x_own = sim3.transform_point(t(gt[owner, :7]), t(pts)).numpy()
+    d = np.linalg.norm(x_own, axis=1)
+    q = (1.0 / d) * (1 + rng.normal(0, 0.1, n_points))
+    pid = np.repeat(np.arange(n_points), n_obs)
+    cid = obs_cam.reshape(-1)
+    uv = _project_sim3(t(gt[cid]), t(pts[pid])).numpy() + rng.normal(0, 0.3, (len(pid), 2))
+    init = gt.copy()
+    init[1:, :7] += rng.normal(0, 0.01, (n_cams - 1, 7))
+    vertices = [(c, "cam_sim3", init[c]) for c in range(n_cams)]
+    vertices += [(n_cams + p, "inv_dist4", np.concatenate([x_own[p] / d[p], [q[p]]]))
+                 for p in range(n_points)]
+    edges = []
+    for e, (p, c) in enumerate(zip(pid.tolist(), cid.tolist())):
+        o = int(owner[p])
+        if c == o:
+            edges.append(("edge_p2c_invdist_ls", (o, n_cams + p), uv[e], np.eye(2)))
+        else:
+            edges.append(("edge_p2c_invdist_lo", (o, c, n_cams + p), uv[e], np.eye(2)))
+    return vertices, edges

@@ -1,6 +1,6 @@
-"""g2o-dialect parser: the BA, SE(2) and SE(3) families.
+"""g2o-dialect parser: every token the JAX package's parser reads.
 
-Port of slam_plus_plus_tpu/io/parser.py for the ported families:
+Port of slam_plus_plus_tpu/io/parser.py:
 
   * mono BA: ``VERTEX_CAM`` (world pose inverted into the internal
     world->camera form, distortion scaled by the mean focal length,
@@ -17,15 +17,20 @@ Port of slam_plus_plus_tpu/io/parser.py for the ported families:
     range-bearing with identity information, SE2_Types.h:602-615) and RB
     landmark edges;
   * SE(3): ``EDGE3`` (RPY rotation), ``EDGE3:AXISANGLE``, the ternary
-    ``EDGE3:TERNARY`` hyperedge and ``LANDMARK3:XYZ``.
+    ``EDGE3:TERNARY`` hyperedge and ``LANDMARK3:XYZ``;
+  * ROCV: ``ROCV:RECEIVER`` / ``ROCV:RECEIVER_GTFAKE`` (pos_vel3d),
+    ``ROCV:TRANSMITTER`` (a landmark3d holding the first 3 of its values),
+    ``ROCV:TRANSMITTER_UF`` (a landmark prior whose parsed factor is the
+    information), ``ROCV:DELTA_TIME`` and ``ROCV:RANGE``.
 
 Information matrices arrive as upper-triangular listings.  As the reference
 CLI does (CIgnoreAllVertexTraits, src/slam_app/Solve2DImpl.cpp:50), SE(2)/SE(3)
-``VERTEX`` lines are counted and ignored: those vertices are initialized from
-the edges; ``VERTEX_XYZ`` is honoured only when the dataset peeks as BA.  A
-token of a family the port does not handle yet raises ``NotImplementedError``
-naming the ROADMAP.md item that ports it (only Sim(3) and ROCV are left);
-it is never skipped silently.
+``VERTEX`` lines are counted and ignored unless ``use_vertex_init`` is set:
+those vertices are initialized from the edges; ``VERTEX_XYZ`` is honoured
+only when the dataset peeks as BA (or ``use_vertex_init`` is set).  The JAX
+parser dispatches no Sim(3) token: ``VERTEX_CAM:SIM3`` and ``VERTEX:SIM3``
+only set ``has_sim3`` in ``peek_dataset`` and are counted as unknown tokens
+here as there (Sim(3) scenes are built in code).
 """
 
 from __future__ import annotations
@@ -40,14 +45,6 @@ from slam_plus_plus_tpu_torch import models  # noqa: F401  (registers types)
 from slam_plus_plus_tpu_torch.graph.system import GraphSystem
 from slam_plus_plus_tpu_torch.models.se2_types import xy_measurement_to_polar
 
-_SIM3_ROCV = "ROADMAP.md Queue 1 item 16 (Sim(3) and ROCV families)"
-
-#: tokens of families the port does not parse yet (besides ROCV:*)
-_UNPORTED_TOKENS = frozenset(("VERTEX_CAM:SIM3", "VERTEX:SIM3"))
-
-#: SE(2)/SE(3) vertex lines: counted, not used (see the module docstring)
-_IGNORED_VERTEX_TOKENS = frozenset(
-    ["VERTEX2", "VERTEX", "VERTEX_SE2", "VERTEX3", "VERTEX_SE3"])
 
 
 def _sym_from_upper(values: List[float], n: int) -> np.ndarray:
@@ -166,16 +163,22 @@ def peek_dataset(path: str, max_lines: int = 5000) -> Dict[str, bool]:
     return flags
 
 
-def parse_g2o(path: str) -> GraphSystem:
+def parse_g2o(path: str, use_vertex_init: bool = False) -> GraphSystem:
     """Parse a dataset into a GraphSystem.
 
-    VERTEX_XYZ belongs to the camera edges only when the dataset peeks as BA;
-    elsewhere (3D landmark SLAM) it is ignored like the SE(3) vertex lines.
+    use_vertex_init=True honours SE(2)/SE(3) VERTEX lines instead of the
+    reference CLI's default of initializing those vertices from edges, and
+    VERTEX_XYZ whatever the dataset peeks as.  Otherwise VERTEX_XYZ belongs
+    to the camera edges only when the dataset peeks as BA; elsewhere (3D
+    landmark SLAM) it is ignored like the SE(3) vertex lines.
     """
     system = GraphSystem()
     stats = ParseStats()
-    peek = peek_dataset(path)
-    is_ba = peek["has_ba"] or peek["has_stereo"] or peek["has_spheron"]
+    if use_vertex_init:
+        is_ba = True
+    else:
+        peek = peek_dataset(path)
+        is_ba = peek["has_ba"] or peek["has_stereo"] or peek["has_spheron"]
 
     with open(path) as f:
         for line in f:
@@ -186,7 +189,7 @@ def parse_g2o(path: str) -> GraphSystem:
             parts = line.split()
             tok = parts[0].upper()
             try:
-                _dispatch_line(tok, parts[1:], system, stats, is_ba)
+                _dispatch_line(tok, parts[1:], system, stats, is_ba, use_vertex_init)
             except (IndexError, ValueError):
                 # reference: "error: line N: line is truncated" + continue
                 # (reference include/slam_app/ParsePrimitives.h:594-597)
@@ -196,9 +199,22 @@ def parse_g2o(path: str) -> GraphSystem:
     return system
 
 
-def _dispatch_line(tok, vals, system, stats, is_ba):
-    if tok in _IGNORED_VERTEX_TOKENS:
+def _floats(vals):
+    return np.array([float(v) for v in vals])
+
+
+def _dispatch_line(tok, vals, system, stats, is_ba, use_vertex_init):
+    if tok in ("VERTEX2", "VERTEX_SE2", "VERTEX"):
         stats.vertices += 1
+        if use_vertex_init:
+            system.add_vertex(int(vals[0]), "pose2d", _floats(vals[1:4]))
+    elif tok in ("VERTEX3", "VERTEX_SE3"):
+        stats.vertices += 1
+        if use_vertex_init:
+            # RPY in the file, axis-angle inside (CVertex3DParsePrimitive,
+            # reference include/slam_app/ParsePrimitives.h:782-799)
+            aa = _rpy_to_axis_angle(float(vals[4]), float(vals[5]), float(vals[6]))
+            system.add_vertex(int(vals[0]), "pose3d", np.concatenate([_floats(vals[1:4]), aa]))
     elif tok in ("EDGE2", "EDGE_SE2", "EDGE", "ODOMETRY"):
         i, j = int(vals[0]), int(vals[1])
         z = np.array([float(v) for v in vals[2:5]])
@@ -277,8 +293,25 @@ def _dispatch_line(tok, vals, system, stats, is_ba):
         info = _sym_from_upper([float(v) for v in vals[5:11]], 3)
         etype = "edge_spheron_xyz" if tok == "EDGE_SPHERON_XYZ" else "edge_p2sc"
         _add_edge(system, stats, etype, (cam, pt), z, info)
-    elif tok in _UNPORTED_TOKENS or tok.startswith("ROCV"):
-        raise NotImplementedError(f"token {tok}: not ported yet, see {_SIM3_ROCV}")
+    elif tok == "ROCV:TRANSMITTER":
+        # the reference parses 6 values (TVertex3D); the landmark holds 3
+        stats.vertices += 1
+        system.add_vertex(int(vals[0]), "landmark3d", _floats(vals[1:4]))
+    elif tok == "ROCV:TRANSMITTER_UF":
+        # unary anchor: the parsed factor IS the information ("elements are
+        # not square roots", reference ROCV_Types.h:251,280-312)
+        info = _sym_from_upper([float(v) for v in vals[1:7]], 3)
+        _add_edge(system, stats, "edge_landmark3d_prior", (int(vals[0]),), np.zeros(3), info)
+    elif tok in ("ROCV:RECEIVER", "ROCV:RECEIVER_GTFAKE"):
+        stats.vertices += 1
+        system.add_vertex(int(vals[0]), "pos_vel3d", _floats(vals[1:7]))
+    elif tok == "ROCV:DELTA_TIME":
+        info = _sym_from_upper([float(v) for v in vals[3:24]], 6)
+        _add_edge(system, stats, "edge_rocv_const_vel", (int(vals[0]), int(vals[1])),
+                  np.array([float(vals[2])]), info)
+    elif tok == "ROCV:RANGE":
+        _add_edge(system, stats, "edge_rocv_range", (int(vals[0]), int(vals[1])),
+                  np.array([float(vals[2])]), np.array([[float(vals[3])]]))
     elif tok == "CONSISTENCY_MARKER":
         stats.markers += 1  # only the incremental engines act on markers
     elif tok in ("EQUIV", "PHASE"):

@@ -1,9 +1,15 @@
-"""Vertex/edge types.  Importing this package registers the ported types:
-the BA families (mono ``edge_p2c``, intrinsics ``edge_p2ci``, stereo
-``edge_p2sc``, spheron ``edge_spheron_xyz``) and the SE(2)/SE(3)
-pose-graph and landmark families."""
+"""Vertex/edge types.  Importing this package registers every type of the
+JAX package: the BA families (mono ``edge_p2c``, intrinsics ``edge_p2ci``,
+stereo ``edge_p2sc``, spheron ``edge_spheron_xyz``), the SE(2)/SE(3)
+pose-graph and landmark families, the Sim(3) grid and ROCV."""
 
-from slam_plus_plus_tpu_torch.models import ba_types, se2_types, se3_types  # noqa: F401
+from slam_plus_plus_tpu_torch.models import (  # noqa: F401
+    ba_types,
+    rocv_types,
+    se2_types,
+    se3_types,
+    sim3_types,
+)
 from slam_plus_plus_tpu_torch.models.types import (
     EDGE_TYPES,
     VERTEX_TYPES,

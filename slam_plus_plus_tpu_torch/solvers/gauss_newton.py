@@ -9,27 +9,30 @@ CNonlinearSolver_Lambda::Optimize, include/slam/NonlinearSolver_Lambda.h:476-668
         if ||dx||_2 <= dx_threshold: break   # break BEFORE pushing
         x <- x ⊞ dx
 
-The linear backend is chosen per structure, as in the JAX package:
+The linear backend is chosen per structure, as in the JAX package
+(its gauss_newton.py:59-77, with ``SolverSettings.linear_solver``):
 
   * the Schur complement whenever a landmark class is split off
     (linalg/schur.py: dense, or block-sparse with the block Cholesky for
     the reduced system on the sparse-reduced branch, venice-real's);
-  * a dense direct Cholesky for float64 systems of <= 6000 scalar dims
-    (float32 never takes it: an unequilibrated pose-graph lambda has
+  * under "auto", a dense direct Cholesky for float64 systems of <= 6000
+    scalar dims (never in float32: an unequilibrated pose-graph lambda has
     kappa ~1e8, beyond a single-precision direct factor);
-  * otherwise the MIS-Schur sparse block Cholesky (linalg/block_cholesky.py),
-    in float32 capped at 8 levels and wrapped as the preconditioner of a
-    PCG with a fixed trip count and a solve-quality gate (``sparse_solve``).
+  * the MIS-Schur sparse block Cholesky (linalg/block_cholesky.py) under
+    "auto" and "block_cholesky", in float32 capped at 8 levels and wrapped
+    as the preconditioner of a PCG with a fixed trip count and a
+    solve-quality gate (``sparse_solve``);
+  * the host splu oracle (linalg/host_solver.py) only under "scipy".
 
-The float32 settings are the JAX package's: the PCG runs at most 12 trips
-and stops at 1e-4 relative residual.  With them float32 GN on the card ends
-manhattan3500 above 1.05 x the reference's chi2 (ROADMAP.md Queue 3).
+The float32 settings are the JAX package's defaults: the PCG runs its
+refine_iterations (2) + 10 trips and stops at 1e-4 relative residual.  With them
+float32 GN on the card ends manhattan3500 above 1.05 x the reference's chi2
+(ROADMAP.md Queue 3).
 
-Left for later slices: the host scipy oracle of the JAX package
-(``linear_solver="scipy"``, with linalg/bsr.py), and the A and SPCG solvers
-(ROADMAP.md Queue 1).  Host syncs per GN iteration: one read of |dx| and
-chi2 together, plus, in float32 on a block Cholesky (the pose-graph backend
-or the sparse-reduced Schur's), one read of the bottom factor's status.
+Host syncs per GN iteration: one read of |dx| and chi2 together, plus, in
+float32 on a block Cholesky (the pose-graph backend or the sparse-reduced
+Schur's), one read of the bottom factor's status; "scipy" adds its one read
+of lambda.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from slam_plus_plus_tpu_torch.config import SolverSettings, pin_precision
 from slam_plus_plus_tpu_torch.graph.system import GraphSystem
 from slam_plus_plus_tpu_torch.linalg.block_cholesky import BlockCholeskySolver
 from slam_plus_plus_tpu_torch.linalg.dense import DenseScatter, cholesky_solve
+from slam_plus_plus_tpu_torch.linalg.host_solver import HostSparseSolver
 from slam_plus_plus_tpu_torch.linalg.schur import SchurSolver
 from slam_plus_plus_tpu_torch.linalg.spmv import LambdaSpmv
 
@@ -54,10 +58,10 @@ DENSE_LIMIT = 6000
 #: float32 depth cap of the block Cholesky: error through the elimination
 #: grows with the level count (the JAX package saw O(1) error at 17 levels)
 F32_MAX_LEVELS = 8
-#: PCG trip count in float32: the JAX package's refine_iterations (2) + 10
-PCG_ITERATIONS = 12
 #: relative residual at which the float32 PCG stops (the JAX package's)
 PCG_REL_TOL = 1e-4
+#: PCG trip count in float32: the JAX package's refine_iterations (2) + 10
+PCG_ITERATIONS = 12
 
 
 def sparse_solve(chol: BlockCholeskySolver, spmv: LambdaSpmv, bs, pcg_iters: int):
@@ -116,27 +120,22 @@ def sparse_solve(chol: BlockCholeskySolver, spmv: LambdaSpmv, bs, pcg_iters: int
 class GaussNewtonSolver:
     def __init__(self, system: GraphSystem, *, device,
                  settings: Optional[SolverSettings] = None):
-        if not system.edge_stores:
-            raise ValueError("cannot build a solver over an empty system "
-                             "(no edges); add edges first")
         t0 = time.perf_counter()
-        pin_precision()
-        self.system = system
-        self.settings = settings or SolverSettings()
-        self.asm = asm = Assembler(system, device=device, settings=self.settings)
-        self.timing = {}
-        use_schur = asm.Nl > 0 and asm.Kpl > 0
+        self._setup(system, device, settings)
+        asm = self.asm
+        ls = self.settings.linear_solver
+        use_schur = asm.Nl > 0 and asm.Kpl > 0 and ls != "scipy"
         self._schur = SchurSolver(asm) if use_schur else None
 
         f32 = asm.dtype == torch.float32
         self._dense = None
-        if (not use_schur and self.settings.linear_solver == "auto" and not f32
-                and asm.Np * asm.Bp <= DENSE_LIMIT):
+        if not use_schur and ls == "auto" and not f32 and asm.Np * asm.Bp <= DENSE_LIMIT:
             self._dense = DenseScatter(asm.pp_rows, asm.pp_cols, asm.Np, asm.Bp,
                                        asm.device)
         self._sparse_chol = None
+        self._host = HostSparseSolver() if ls == "scipy" else None
         self.pcg_iterations = 0
-        if not use_schur and self._dense is None:
+        if not use_schur and self._dense is None and ls in ("auto", "block_cholesky"):
             # large pose graphs: the MIS-Schur block Cholesky (the
             # reference's CLinearSolver_UberBlock role)
             self._sparse_chol = BlockCholeskySolver(
@@ -146,6 +145,18 @@ class GaussNewtonSolver:
             self.pcg_iterations = PCG_ITERATIONS if f32 else 0
         self.pcg_taken = []      # PCG iterations of each sparse solve (device scalars)
         self.timing["construct"] = time.perf_counter() - t0
+
+    def _setup(self, system: GraphSystem, device, settings: Optional[SolverSettings]):
+        """What every solver of the GN family shares: the system, its
+        settings and the assembler over it."""
+        if not system.edge_stores:
+            raise ValueError("cannot build a solver over an empty system "
+                             "(no edges); add edges first")
+        pin_precision()
+        self.system = system
+        self.settings = settings or SolverSettings()
+        self.asm = Assembler(system, device=device, settings=self.settings)
+        self.timing = {}
 
     def _solve(self, bs):
         """(dx_p [Np, Bp], dx_l [Nl, Bl]) for a (damped) BlockSystem."""
@@ -157,9 +168,14 @@ class GaussNewtonSolver:
         if self._dense is not None:
             dx = cholesky_solve(self._dense(bs.pp_blocks), bs.eta_p.reshape(-1))
             return dx.reshape(asm.Np, asm.Bp), zeros_l
-        dx, taken = sparse_solve(self._sparse_chol, self._spmv, bs, self.pcg_iterations)
-        self.pcg_taken.append(taken)
-        return dx, zeros_l
+        if self._sparse_chol is not None:
+            dx, taken = sparse_solve(self._sparse_chol, self._spmv, bs, self.pcg_iterations)
+            self.pcg_taken.append(taken)
+            return dx, zeros_l
+        if asm.Nl:
+            return self._host.solve_partitioned(asm, bs)
+        return self._host.solve_blocks(asm.pp_rows, asm.pp_cols, bs.pp_blocks, bs.eta_p,
+                                       asm.Np, asm.Bp), zeros_l
 
     def optimize(self, max_iterations: int = 5, dx_threshold: float = 0.01,
                  verbose: bool = False):

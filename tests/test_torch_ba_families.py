@@ -162,7 +162,7 @@ def test_cli_prints_the_same_chi2(files, capsys):
     want = [ln for ln in capsys.readouterr().out.splitlines()
             if ln.startswith(("denormalized chi2 error:", "solver took"))]
     assert len(want) == 2
-    assert tmain.main(["-i", path, "--device", "cpu"]) == 0
+    assert tmain.main(["-i", path, "--device", "cpu", "-dx", ""]) == 0
     out = capsys.readouterr().out.splitlines()
     for line in want:
         assert line in out

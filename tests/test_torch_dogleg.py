@@ -41,7 +41,7 @@ def test_cli_dogleg(files, capsys):
     want = [ln for ln in capsys.readouterr().out.splitlines()
             if ln.startswith(("denormalized chi2 error:", "solver took"))]
     assert len(want) == 2
-    assert tmain.main(["-i", files["ba"], "--device", "cpu", "-,\\dl", "-v"]) == 0
+    assert tmain.main(["-i", files["ba"], "--device", "cpu", "-,\\dl", "-v", "-dx", ""]) == 0
     out = capsys.readouterr().out.splitlines()
     for line in want:
         assert line in out

@@ -119,7 +119,7 @@ def test_lm_trajectory_matches(ba_file, jax_lm):
 
 def test_cli_prints_the_same_chi2(ba_file, jax_lm, capsys):
     jchi2, jit, _ = jax_lm
-    assert tmain.main(["-i", ba_file, "--device", "cpu", "-v"]) == 0
+    assert tmain.main(["-i", ba_file, "--device", "cpu", "-v", "-dx", ""]) == 0
     out = capsys.readouterr().out
     assert f"denormalized chi2 error: {jchi2:.2f}" in out
     assert f"solver took {jit} iterations" in out
@@ -135,12 +135,13 @@ def test_cli_without_card_fails(ba_file, capsys):
 
 #: every module of the port, all imported by the walk below
 PORT_MODULES = (
-    "app.main", "assembly.assembler", "config", "graph.system",
-    "io.acceptance", "io.datasets", "io.parser", "linalg.block_cholesky", "linalg.dense", "linalg.schur",
-    "linalg.spmv", "manifolds.camera", "manifolds.se2", "manifolds.se3",
-    "manifolds.so3", "models.ba_types", "models.se2_types", "models.se3_types",
-    "models.types", "ops.p2c", "ops.panel", "ops.planar", "robust.losses",
-    "solvers.dogleg", "solvers.gauss_newton", "solvers.lm")
+    "app.main", "assembly.assembler", "config", "evaluation.error_eval",
+    "graph.system", "io.acceptance", "io.datasets", "io.parser", "linalg.block_cholesky",
+    "linalg.bsr", "linalg.dense", "linalg.host_solver", "linalg.schur", "linalg.spmv",
+    "manifolds.camera", "manifolds.se2", "manifolds.se3", "manifolds.sim3", "manifolds.so3",
+    "models.ba_types", "models.rocv_types", "models.se2_types", "models.se3_types",
+    "models.sim3_types", "models.types", "ops.p2c", "ops.panel", "ops.planar", "robust.losses",
+    "solvers.a_solver", "solvers.dogleg", "solvers.gauss_newton", "solvers.lm", "solvers.spcg")
 
 
 def test_port_never_imports_jax():
