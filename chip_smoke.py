@@ -72,7 +72,27 @@ it never falls back to the CPU.  Phases, each of which must pass:
      the median of 5 timed LM trials and a profile of one) and of the
      ROCV scene at 10,000 steps (GN through the CLI's code path), chi2 per
      iteration finite and not rising (beyond float32's
-     1e-3 wander at the optimum); K1 and K2 launched 0 times.
+     1e-3 wander at the optimum); K1 and K2 launched 0 times;
+ 10. incremental solving (no Pallas kernel lies on this path either): (a) a
+     small manhattan -nsp 1 -fL replay on the card (float32): the maintained
+     factor's flat stores after the first dirty step within 1e-4 x scale of
+     the same step on the CPU from the same float32 inputs, their DUMMY rows
+     zero, their largest error against the CPU float64 replay's printed
+     (not gated: the float32 pivot ridge), the final chi2 within 1e-3
+     relative of the JAX package's float32 replay (float32 ends 10.3% above
+     float64 on this file, in both packages); (b) the six incremental acceptance rows
+     (io/acceptance.py INCREMENTAL_ROWS: manhattan3500 and city10k -nsp 1,
+     manhattan3500, intel-scale, vp-scale and trees10k-incr -nsp 1 -fL)
+     through the CLI's code path, each gated at chi2 <= 1.05 x the
+     reference binary's golden as in phase 7 (trees10k-incr is a row of
+     acceptance.FLOAT32_MISSES: the JAX package's float32 engine misses its
+     gate too; it is held at its recorded 1.13 x golden), with iterations
+     and pushes beside the
+     golden's, wall seconds, ms per solve point, solve points, full
+     refactors, dirty overflows, MIS levels, the bottom size and peak
+     device memory; (c) a torch.profiler trace of 20 solve points of
+     manhattan3500 -fL: device activities per solve point and the idle
+     share; (d) K1 and K2 launched 0 times.
 
 The last two lines are a JSON object describing each kernel and the result
 line {"ok": true, "device": {...}}.
@@ -164,6 +184,11 @@ def main() -> int:
     t0 = time.perf_counter()
     rest_of_batch_phase(torch, dev, card)
     print(f"phase 9 (the rest of batch solving): {time.perf_counter() - t0:.1f} s wall")
+
+    # ---- 10. incremental solving ------------------------------------------
+    t0 = time.perf_counter()
+    incremental_phase(torch, dev, card)
+    print(f"phase 10 (incremental solving): {time.perf_counter() - t0:.1f} s wall")
 
     print(f"card: {card}")
     print(json.dumps({"kernels": [k1, k2]}))
@@ -535,7 +560,6 @@ def profile_steps(torch, step, states0, n_steps=TIMED_STEPS, what="steps"):
     iteration: device time of each kernel name, the sum of all device
     activity times, their union on the timeline (busy time), the wall time
     of the same profiled run and so the idle share."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     step(states0)
@@ -548,6 +572,16 @@ def profile_steps(torch, step, states0, n_steps=TIMED_STEPS, what="steps"):
             states, _ = step(states)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    trace_summary(prof, n_steps, wall_ms, what)
+
+
+def trace_summary(prof, n_steps, wall_ms, what):
+    """Print a trace's device activities per iteration (of n_steps), their summed
+    time, their union on the timeline (busy), the idle share of wall_ms
+    (the run's wall time per iteration under the profiler) and the ten
+    longest kernel names."""
+    from torch.autograd import DeviceType
+
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
     if not spans:
@@ -719,17 +753,22 @@ def manhattan_residual_check(torch, dev):
 
 def row_gate(label, chi2, golden, start):
     """An acceptance row's gate: chi2 <= GATE x golden, or, for a row of
-    FLOAT32_MISSES, finite and below start() (its starting chi2).  Returns
-    the verdict to print before the gate."""
+    FLOAT32_MISSES, finite and below start() (its starting chi2) and, where
+    the row has one, under its recorded bound x golden.  Returns the
+    verdict to print before the gate."""
     from slam_plus_plus_tpu_torch.io import acceptance
 
     check(np.isfinite(chi2), f"{label}: chi2 {chi2}")
     bound = acceptance.GATE * golden
-    recorded = acceptance.FLOAT32_MISSES.get(label)
-    if recorded is None:
+    if label not in acceptance.FLOAT32_MISSES:
         check(chi2 <= bound, f"{label}: chi2 {chi2:.2f} > {acceptance.GATE} x {golden}")
         return "<="
+    recorded, miss_bound = acceptance.FLOAT32_MISSES[label]
     check(chi2 < start(), f"{label}: chi2 {chi2:.2f} not below its starting chi2")
+    if miss_bound is not None:
+        check(chi2 <= miss_bound * golden,
+              f"{label}: chi2 {chi2:.2f} > its recorded float32 bound {miss_bound} x {golden}")
+        recorded += f"; held at {miss_bound} x golden"
     return ("<=" if chi2 <= bound else
             f"MISSES, as float32 with the JAX package's settings does ({recorded}):")
 
@@ -1296,6 +1335,206 @@ def rest_of_batch_phase(torch, dev, card):
     launches = (p2c_edge_terms.launches, build_panels.launches)
     check(launches == (0, 0), f"phase 9 launched K1/K2 {launches} times")
     print(f"launches during phase 9: p2c_edge_terms {launches[0]}, build_panels "
+          f"{launches[1]} (no Pallas kernel lies on this path)")
+
+
+
+# ---- phase 10: incremental solving -------------------------------------------
+
+#: the small -fL replay of phase 10 (a): manhattan, no push before its first
+#: dirty step, so card and CPU reach it at the same linearization
+INCR_SMALL = dict(n_poses=300, seed=91)
+#: the JAX package's float32 FastL replay of that file (its JAX engine, on
+#: the CPU): float32 with the JAX package's settings ends 10.3% above the
+#: float64 replay's 46.2038 there (ROADMAP.md Queue 3), and the port's
+#: float32 replay follows the JAX one (tests/test_torch_incremental.py)
+INCR_SMALL_JAX_F32 = 50.977749
+#: the card's first dirty step against the same step on the CPU from the
+#: same float32 inputs, per store x its scale; the final chi2 against the
+#: JAX package's float32 replay, relative
+INCR_STORE_TOL, INCR_CHI2_TOL = 1e-4, 1e-3
+#: the profiled stretch of manhattan3500 -fL: this many solve points of the
+#: fast path, from this one on
+PROFILE_SOLVE_POINTS, PROFILE_FROM = 20, 100
+
+
+def _first_dirty_step(torch, fl):
+    """Keep host copies of the inputs and the result of the engine's first
+    dirty step (the step updates the stores in place)."""
+    seen = {}
+    scan = fl.inc._dirty_scan
+
+    def host(x):
+        return x.detach().to("cpu", copy=True)
+
+    def spy(stores, *a):
+        first = "out" not in seen
+        if first:
+            seen["in"] = ({k: host(v) for k, v in stores.items()}, [host(x) for x in a])
+        out = scan(stores, *a)
+        if first:
+            seen["out"] = {k: host(v) for k, v in out.items()}
+        return out
+
+    fl.inc._dirty_scan = spy
+    return seen
+
+
+def _store_errors(inc, got, want, tol=None):
+    """max |got - want| / max(|want|, 1) of each flat store's data rows,
+    checked against tol when one is given; returns them as text and the
+    largest."""
+    errs = {}
+    for k, n in (("H", inc.KH), ("C", inc.NC), ("W", inc.NW), ("P", inc.NP)):
+        w, g = want[k][:n].double(), got[k][:n].double()
+        errs[k] = float((g - w).abs().max()) / max(float(w.abs().max()), 1.0)
+        if tol is not None:
+            check(errs[k] <= tol, f"small -fL replay: store {k} {errs[k]:.3e} x scale")
+    return ", ".join(f"{k} {e:.2e}" for k, e in errs.items()), max(errs.values())
+
+
+def incremental_small_check(torch, dev):
+    """(a): the card's float32 -fL replay of a small manhattan: its first
+    dirty step against the same step on the CPU from the same float32
+    inputs, its DUMMY rows, its stores against the CPU float64 replay's
+    (printed: the JAX package's float32 pivot ridge moves C by up to the
+    pivot's condition x 1e-5), and its final chi2."""
+    from slam_plus_plus_tpu_torch.io import datasets as D
+    from slam_plus_plus_tpu_torch.io.parser import parse_g2o
+    from slam_plus_plus_tpu_torch.solvers.fastl import FastLSolver
+
+    path = os.path.join(_scene_dir(), "smoke_manhattan_fastl.g2o")
+    poses, edges = D.make_manhattan_2d(**INCR_SMALL)
+    D.write_g2o_2d(path, edges, poses)
+    runs = {}
+    for d in ("cpu", dev):
+        fl = FastLSolver(parse_g2o(path), device=d)
+        seen = _first_dirty_step(torch, fl)
+        chi2, iters = fl.run()
+        check("out" in seen, f"small -fL replay on {d}: no dirty step")
+        runs[str(d)] = (fl, seen, chi2, iters)
+    (cpu, cseen, chi2_64, it64), (fl, seen, chi2, it) = runs["cpu"], runs[str(dev)]
+    inc = fl.inc
+    check(fl.asm.dtype == torch.float32, "small -fL replay: the card path runs float32")
+    check((inc.cap_d, inc.cap_e, inc.cap_w, inc.cap_p) ==
+          (cpu.inc.cap_d, cpu.inc.cap_e, cpu.inc.cap_w, cpu.inc.cap_p),
+          "small -fL replay: card and CPU capacities differ")
+    stores, args = seen["in"]
+    same, _ = _store_errors(inc, seen["out"], cpu.inc._dirty_scan(stores, *args),
+                            INCR_STORE_TOL)
+    for k, dummy in (("H", inc.H_dummy), ("C", inc.C_dummy), ("W", inc.W_dummy),
+                     ("P", inc.P_dummy)):
+        check(not bool(seen["out"][k][dummy].any()), f"small -fL replay: {k} DUMMY row written")
+    vs64, vs64_max = _store_errors(inc, seen["out"], cseen["out"])
+    rel = abs(chi2 - INCR_SMALL_JAX_F32) / INCR_SMALL_JAX_F32
+    check(np.isfinite(chi2) and rel <= INCR_CHI2_TOL,
+          f"small -fL replay: card {chi2} in {it} iterations, the JAX package's float32 "
+          f"{INCR_SMALL_JAX_F32}")
+    print(f"small -nsp 1 -fL replay (manhattan {INCR_SMALL['n_poses']} poses, "
+          f"{len(fl.chol.plan.levels)} MIS levels): the first dirty step on the card against "
+          f"the CPU's from the same float32 inputs, max err/scale {same} (tol "
+          f"{INCR_STORE_TOL:g}); DUMMY rows zero; card float32 stores against the CPU float64 "
+          f"replay's {vs64}, largest {vs64_max:.3e} x scale (not gated: the float32 pivot "
+          f"ridge); final chi2 {chi2:.6f} in "
+          f"{it} iterations vs the JAX package's float32 {INCR_SMALL_JAX_F32}, relative "
+          f"{rel:.3e} (tol {INCR_CHI2_TOL:g}); the CPU float64 replay {chi2_64:.6f} in {it64} "
+          f"(float32 {chi2 / chi2_64 - 1:+.2%}, as the JAX package's float32)")
+
+
+def incremental_row(torch, dev, card, label):
+    """One incremental acceptance row through the CLI's code path."""
+    from slam_plus_plus_tpu_torch.app import main as cli
+    from slam_plus_plus_tpu_torch.io import acceptance
+    from slam_plus_plus_tpu_torch.solvers.fastl import FastLSolver
+
+    from slam_plus_plus_tpu_torch.io.parser import parse_g2o
+
+    name, flags, golden, golden_iters = acceptance.INCREMENTAL_ROWS[label]
+    path = pose_dataset(name)
+    args = cli.build_argparser().parse_args(
+        ["-i", path, "--device", dev.type, "-s", "-dx", ""] + flags)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    chi2, iters, solver = cli.run(args)
+    wall = time.perf_counter() - t0
+    fl = getattr(solver, "_delegate", None) or solver
+    check(isinstance(fl, FastLSolver), f"{label}: not the maintained-factor engine")
+    check(fl.asm.dtype == torch.float32, f"{label}: the card path runs float32")
+    verdict = row_gate(label, chi2, golden, lambda: float(
+        fl.asm.chi2(fl.asm.snapshot_states(parse_g2o(path)))))
+    st, inc = fl.stats, fl.inc
+    ms_point = st["elapsed"] / max(st["solve_points"], 1) * 1e3
+    print(f"incremental row {label} ({fl.system.num_vertices} vertices, "
+          f"{fl.system.num_edges} edges; {fl.asm.Np} x {fl.asm.Bp} dims, one mixed class): chi2 "
+          f"{chi2:.2f} in {iters} iterations, {st['pushes']} pushes {verdict} {acceptance.GATE} x "
+          f"{golden} (ratio {chi2 / golden:.4f}; the reference {golden} in {golden_iters} "
+          f"iterations); {st['solve_points']} solve points, {ms_point:.2f} ms per solve point "
+          f"(replay {st['elapsed']:.1f} s / solve points); {st['full_refactors']} full "
+          f"refactors, {st['dirty_overflows']} dirty overflows (caps d/e/w/p {inc.cap_d}/"
+          f"{inc.cap_e}/{inc.cap_w}/{inc.cap_p}); {len(fl.chol.plan.levels)} MIS levels, bottom "
+          f"{fl.chol.plan.n_bottom} blocks; wall {wall:.1f} s (parse {fl.timing['parse']:.1f} s, "
+          f"construct {fl.timing['construct']:.1f} s); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; on {card}")
+
+
+class _Profiled(Exception):
+    """Ends a replay once its profiled stretch is over."""
+
+
+def profile_solve_points(torch, dev, label):
+    """torch.profiler over PROFILE_SOLVE_POINTS consecutive fast-path solve
+    points of a fresh replay of the row (omega, dirty step, refined solve,
+    the |dx| read and the host loop between them), from the
+    PROFILE_FROM-th; the replay stops there."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from slam_plus_plus_tpu_torch.io import acceptance
+    from slam_plus_plus_tpu_torch.io.parser import parse_g2o
+    from slam_plus_plus_tpu_torch.solvers.fastl import FastLSolver
+
+    name = acceptance.INCREMENTAL_ROWS[label][0]
+    fl = FastLSolver(parse_g2o(pose_dataset(name)), device=dev)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    inner, seen = fl._solve_point, {"n": 0}
+
+    def spy(*a):
+        k = seen["n"]
+        seen["n"] += 1
+        if k == PROFILE_FROM:
+            torch.cuda.synchronize()
+            prof.__enter__()
+            seen["t0"] = time.perf_counter()
+        elif k == PROFILE_FROM + PROFILE_SOLVE_POINTS:
+            torch.cuda.synchronize()
+            seen["wall_ms"] = (time.perf_counter() - seen["t0"]) * 1e3 / PROFILE_SOLVE_POINTS
+            prof.__exit__(None, None, None)
+            raise _Profiled
+        return inner(*a)
+
+    fl._solve_point = spy
+    try:
+        fl.run()
+    except _Profiled:
+        pass
+    check("wall_ms" in seen, f"{label}: fewer than {PROFILE_FROM + PROFILE_SOLVE_POINTS} "
+          f"fast-path solve points")
+    trace_summary(prof, PROFILE_SOLVE_POINTS, seen["wall_ms"], f"{label} solve points")
+
+
+def incremental_phase(torch, dev, card):
+    from slam_plus_plus_tpu_torch.io import acceptance
+    from slam_plus_plus_tpu_torch.ops.p2c import p2c_edge_terms
+    from slam_plus_plus_tpu_torch.ops.panel import build_panels
+
+    p2c_edge_terms.launches = 0
+    build_panels.launches = 0
+    incremental_small_check(torch, dev)
+    for label in acceptance.INCREMENTAL_ROWS:
+        incremental_row(torch, dev, card, label)
+    profile_solve_points(torch, dev, "manhattan3500 -nsp 1 -fL")
+    launches = (p2c_edge_terms.launches, build_panels.launches)
+    check(launches == (0, 0), f"phase 10 launched K1/K2 {launches} times")
+    print(f"launches during phase 10: p2c_edge_terms {launches[0]}, build_panels "
           f"{launches[1]} (no Pallas kernel lies on this path)")
 
 

@@ -310,6 +310,7 @@ class Assembler:
                 off_pl += E
             self.plans.append(_EdgePlan(ename, E, et.vertex_types, slot_local,
                                         slot_cslot, slot_class, pp_contribs, pl_contribs))
+        self.plan_of = {plan.name: plan for plan in self.plans}
 
         # unary gauge anchor: identity on the first vertex of the first edge
         # (reference CBasicUnaryFactorFactory, include/slam/FlatSystem.h:432-470)
@@ -472,10 +473,11 @@ class Assembler:
         return (pp.T.contiguous(), pl, ll, eta_p.T.contiguous(), eta_l, chi2,
                 max_hdiag)
 
-    def _edge_sums_flat(self, states):
+    def _edge_sums_flat(self, states, edge_data=None):
         """Raw reductions of the generic kernels' per-edge terms: index_add_
         onto the class slots and the pp/pl block ids, swapped pp pairs
-        transposed first."""
+        transposed first.  edge_data: this assembler's, or a masked copy."""
+        edge_data = edge_data or self.edge_data
         dt, dev = self.dtype, self.device
         Bp, Bl = self.Bp, self.Bl
         Np, Nl = max(self.Np, 1), max(self.Nl, 1)
@@ -487,7 +489,7 @@ class Assembler:
         chi2 = torch.zeros((), dtype=dt, device=dev)
         max_hdiag = torch.zeros((), dtype=dt, device=dev)
         for plan in self.plans:
-            data = self.edge_data[plan.name]
+            data = edge_data[plan.name]
             gathered = tuple(states[t].index_select(0, data["slot_local"][k])
                              for k, t in enumerate(plan.slot_types))
             chi2_e, hdiag_e, gs, Hpp, Hll, Hpl = self._kernels[plan.name](
@@ -540,13 +542,14 @@ class Assembler:
     def assemble(self, states) -> BlockSystem:
         return self._finalize(*self._edge_sums(states))
 
-    def chi2(self, states) -> torch.Tensor:
+    def chi2(self, states, edge_data=None) -> torch.Tensor:
         """Total chi2 through each edge type's own batched residual, or its
         error of the expectation where the type is split so (for edge_p2c
         the generic quaternion path, not K1)."""
+        edge_data = edge_data or self.edge_data
         chi2 = torch.zeros((), dtype=self.dtype, device=self.device)
         for plan in self.plans:
-            data = self.edge_data[plan.name]
+            data = edge_data[plan.name]
             gathered = tuple(states[t].index_select(0, data["slot_local"][k])
                              for k, t in enumerate(plan.slot_types))
             et = EDGE_TYPES[plan.name]
@@ -554,6 +557,66 @@ class Assembler:
                  else et.residual(gathered, data["z"]))
             chi2 = chi2 + torch.einsum("ei,eij,ej->", r, data["info"], r)
         return chi2
+
+    # ---- active-prefix (incremental) variants -------------------------
+    #
+    # An incremental replay runs against the FULL structure with
+    # active-count masking (the JAX package's design): edges beyond the
+    # active prefix of each type carry zero information, inactive vertices
+    # a unit diagonal pivot (dx = 0), so every replay step reuses the one
+    # plan (the reference's Extend_Lambda, NonlinearSolver_Lambda_Base.h).
+
+    def _refuse_uniform(self):
+        if self.pl_uniform is not None:
+            raise RuntimeError("active-prefix masking needs parse order; construct the "
+                               "Assembler with SolverSettings(edge_layout='flat')")
+
+    def _mask_edge_data(self, counts: Dict[str, int]):
+        """edge_data with the information of each type's edges past
+        counts[type] (its active prefix) zeroed."""
+        self._refuse_uniform()
+        masked = {}
+        for plan in self.plans:
+            d = dict(self.edge_data[plan.name])
+            mask = torch.arange(plan.E, device=self.device) < counts[plan.name]
+            d["info"] = d["info"] * mask.to(self.dtype)[:, None, None]
+            masked[plan.name] = d
+        return masked
+
+    def assemble_active(self, states, counts: Dict[str, int], n_active_p: int,
+                        n_active_l: int) -> BlockSystem:
+        """The block system of the active prefix: masked edges, and a unit
+        pivot (on the real tangent dims) on every class slot at or past
+        n_active_p / n_active_l."""
+        bs = self._finalize(*self._edge_sums_flat(states, self._mask_edge_data(counts)))
+        pp, ll = bs.pp_blocks, bs.ll_blocks
+        inactive_p = (torch.arange(max(self.Np, 1), device=self.device) >= n_active_p)
+        pp[self.pp_diag_ids_dev[:, None], self._p_diag_cols] += (
+            inactive_p.to(self.dtype)[:, None] * self.p_mask_dev)
+        if self.Nl:
+            inactive_l = torch.arange(self.Nl, device=self.device) >= n_active_l
+            ll[:, self._l_diag_cols] += inactive_l.to(self.dtype)[:, None] * self.l_mask_dev
+        return bs
+
+    def chi2_active(self, states, counts: Dict[str, int]) -> torch.Tensor:
+        """chi2 over each type's active prefix of edges."""
+        return self.chi2(states, self._mask_edge_data(counts))
+
+    def place_vertex(self, states, ename: str, slot: int, eidx: int):
+        """Place vertex `slot` of edge eidx of type ename from that edge at
+        the current states, in place (EdgeType.device_initializer; a type
+        without one keeps the parsed state).  One vertex per call: the next
+        may be placed from this one's fresh state."""
+        et = EDGE_TYPES[ename]
+        if et.device_initializer is None:
+            return states
+        plan = self.plan_of[ename]
+        gathered = tuple(states[t][int(plan.slot_local[k][eidx])][None]
+                         for k, t in enumerate(et.vertex_types))
+        z = self.edge_data[ename]["z"][eidx][None]
+        li = int(plan.slot_local[slot][eidx])
+        states[et.vertex_types[slot]][li] = et.device_initializer(gathered, z, slot)[0]
+        return states
 
     def update(self, states, dx_p, dx_l):
         """x ⊞ dx per vertex type (the JAX _update_impl): dx_p [Np, Bp],

@@ -371,8 +371,9 @@ class BlockCholeskySolver:
         sr, sc = s[self._rows0], s[self._cols0]
         return s, (sr[:, :, None] * sc[:, None, :]).reshape(H.shape[0], B * B)
 
-    def _descend(self, H):
-        """Run the elimination levels: (bottom blocks, c_invs, Ws)."""
+    def _descend(self, H, trace=None):
+        """Run the elimination levels: (bottom blocks, c_invs, Ws).  trace:
+        a list that gets each level's (entering blocks, fill products)."""
         B = self.B
         c_invs, Ws = [], []
         f32 = H.dtype == torch.float32
@@ -390,11 +391,14 @@ class BlockCholeskySolver:
             W = planar.bmm(U, c_inv[lv.u_elim], B, B, B)
             Hn = torch.zeros((lv.K_next, B * B), dtype=H.dtype, device=H.device)
             Hn[lv.carry_dst] = H[lv.carry_src]
+            prod = None
             if lv.has_fill:
                 prod = planar.bmm_A_Bt(W[lv.pa], U[lv.pb], B, B, B)
                 prod = torch.where(lv.p_flip[:, None], planar.btranspose(prod, B, B), prod)
                 fill = torch.zeros_like(Hn).index_add_(0, lv.p_dst, prod)
                 Hn = Hn - fill
+            if trace is not None:
+                trace.append((H, prod))
             H = Hn
             c_invs.append(c_inv)
             Ws.append(W)

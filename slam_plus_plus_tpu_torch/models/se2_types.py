@@ -9,7 +9,8 @@ reference include/slam/SE2_Types.h).
     identity (SE2_Types.h:602-615), as the reference does; RB-parsed
     measurements keep their information.
 
-Residuals are batched over a leading axis; initializers are host numpy.
+Residuals are batched over a leading axis; ``initializer`` is host numpy,
+``device_initializer`` its torch counterpart for incremental activation.
 """
 
 from __future__ import annotations
@@ -48,8 +49,17 @@ def _pose2d_init(states, z):
     return x0, x1
 
 
+def _pose2d_device_init(states, z, slot):
+    """Activation: a new slot-1 pose composed from the other end; a new
+    slot-0 pose at the origin."""
+    if slot == 0:
+        return torch.zeros_like(z)
+    return se2.compose(states[0], z)
+
+
 EDGE_POSE2D = edge_type("edge_pose2d", ("pose2d", "pose2d"), 3, 3,
-                        _pose2d_residual, _pose2d_init)
+                        _pose2d_residual, _pose2d_init,
+                        device_initializer=_pose2d_device_init)
 
 
 def _rb_residual(states, z):
@@ -73,8 +83,18 @@ def _rb_init(states, z):
     return pose, lm
 
 
+def _rb_device_init(states, z, slot):
+    if slot == 0:
+        return torch.zeros(z.shape[:-1] + (3,), dtype=z.dtype, device=z.device)
+    pose = states[0]
+    ang = pose[..., 2] + z[..., 1]
+    return torch.stack([pose[..., 0] + z[..., 0] * torch.cos(ang),
+                        pose[..., 1] + z[..., 0] * torch.sin(ang)], dim=-1)
+
+
 EDGE_POSE_LANDMARK2D = edge_type("edge_pose_landmark2d", ("pose2d", "landmark2d"),
-                                 2, 2, _rb_residual, _rb_init)
+                                 2, 2, _rb_residual, _rb_init,
+                                 device_initializer=_rb_device_init)
 
 
 def xy_measurement_to_polar(xy: np.ndarray):

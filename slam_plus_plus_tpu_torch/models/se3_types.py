@@ -12,14 +12,16 @@ reference include/slam/SE3_Types.h).
   * pose-landmark edge: h = landmark in the pose frame; r = z - h
     (SE3_Types.h:569+).
 
-Residuals are batched over a leading axis; initializers are host numpy.
+Residuals are batched over a leading axis; ``initializer`` is host numpy,
+``device_initializer`` its torch counterpart for incremental activation.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from slam_plus_plus_tpu_torch.manifolds import se3
+from slam_plus_plus_tpu_torch.manifolds import se3, so3
 from slam_plus_plus_tpu_torch.models.types import edge_type, vertex_type
 
 
@@ -105,9 +107,20 @@ def _pose3d_init(states, z):
     return x0, x1
 
 
+def _origin(z, dim):
+    return torch.zeros(z.shape[:-1] + (dim,), dtype=z.dtype, device=z.device)
+
+
+def _pose3d_device_init(states, z, slot):
+    if slot == 0:
+        return _origin(z, 6)
+    return se3.compose(states[0], z)
+
+
 EDGE_POSE3D = edge_type("edge_pose3d", ("pose3d", "pose3d"), 6, 6,
                         _pose3d_residual, _pose3d_init, robust=True,
-                        expectation=_pose3d_expectation, error=se3.pose_error)
+                        expectation=_pose3d_expectation, error=se3.pose_error,
+                        device_initializer=_pose3d_device_init)
 
 
 # ---- ternary pose hyperedge ------------------------------------------------
@@ -134,10 +147,20 @@ def _pose3d_ternary_init(states, z):
     return x0, x1, x2
 
 
+def _pose3d_ternary_device_init(states, z, slot):
+    if slot == 0:
+        return _origin(z, 6)
+    if slot == 1:
+        return states[0]
+    m01 = se3.relative_to(states[0], states[1])
+    return se3.compose(states[1], se3.compose(m01, z))
+
+
 EDGE_POSE3D_TERNARY = edge_type(
     "edge_pose3d_ternary", ("pose3d", "pose3d", "pose3d"), 6, 6,
     _pose3d_ternary_residual, _pose3d_ternary_init,
-    expectation=_pose3d_ternary_expectation, error=se3.pose_error)
+    expectation=_pose3d_ternary_expectation, error=se3.pose_error,
+    device_initializer=_pose3d_ternary_device_init)
 
 
 # ---- pose-landmark edge ----------------------------------------------------
@@ -157,5 +180,13 @@ def _lm3d_init(states, z):
     return pose, lm
 
 
+def _lm3d_device_init(states, z, slot):
+    if slot == 0:
+        return _origin(z, 6)
+    pose = states[0]
+    return so3.quat_rotate(so3.axis_angle_to_quat(pose[..., 3:]), z) + pose[..., :3]
+
+
 EDGE_POSE_LANDMARK3D = edge_type("edge_pose_landmark3d", ("pose3d", "landmark3d"),
-                                 3, 3, _lm3d_residual, _lm3d_init)
+                                 3, 3, _lm3d_residual, _lm3d_init,
+                                 device_initializer=_lm3d_device_init)

@@ -137,11 +137,13 @@ def test_cli_without_card_fails(ba_file, capsys):
 PORT_MODULES = (
     "app.main", "assembly.assembler", "config", "evaluation.error_eval",
     "graph.system", "io.acceptance", "io.datasets", "io.parser", "linalg.block_cholesky",
-    "linalg.bsr", "linalg.dense", "linalg.host_solver", "linalg.schur", "linalg.spmv",
+    "linalg.bsr", "linalg.dense", "linalg.host_solver", "linalg.incremental_cholesky",
+    "linalg.schur", "linalg.spmv",
     "manifolds.camera", "manifolds.se2", "manifolds.se3", "manifolds.sim3", "manifolds.so3",
     "models.ba_types", "models.rocv_types", "models.se2_types", "models.se3_types",
     "models.sim3_types", "models.types", "ops.p2c", "ops.panel", "ops.planar", "robust.losses",
-    "solvers.a_solver", "solvers.dogleg", "solvers.gauss_newton", "solvers.lm", "solvers.spcg")
+    "solvers.a_solver", "solvers.dogleg", "solvers.fastl", "solvers.gauss_newton",
+    "solvers.incremental", "solvers.lm", "solvers.spcg")
 
 
 def test_port_never_imports_jax():
