@@ -73,26 +73,52 @@ it never falls back to the CPU.  Phases, each of which must pass:
      ROCV scene at 10,000 steps (GN through the CLI's code path), chi2 per
      iteration finite and not rising (beyond float32's
      1e-3 wander at the optimum); K1 and K2 launched 0 times;
- 10. incremental solving (no Pallas kernel lies on this path either): (a) a
-     small manhattan -nsp 1 -fL replay on the card (float32): the maintained
+ 10. incremental solving (no Pallas kernel lies on this path either), in
+     float64, the incremental engine's dtype on the card
+     (config.incremental_dtype): (a) a small manhattan -nsp 1 -fL replay by
+     the float32 engine (dtype=torch.float32) on the card: the maintained
      factor's flat stores after the first dirty step within 1e-4 x scale of
      the same step on the CPU from the same float32 inputs, their DUMMY rows
      zero, their largest error against the CPU float64 replay's printed
      (not gated: the float32 pivot ridge), the final chi2 within 1e-3
      relative of the JAX package's float32 replay (float32 ends 10.3% above
-     float64 on this file, in both packages); (b) the six incremental acceptance rows
-     (io/acceptance.py INCREMENTAL_ROWS: manhattan3500 and city10k -nsp 1,
-     manhattan3500, intel-scale, vp-scale and trees10k-incr -nsp 1 -fL)
-     through the CLI's code path, each gated at chi2 <= 1.05 x the
-     reference binary's golden as in phase 7 (trees10k-incr is a row of
-     acceptance.FLOAT32_MISSES: the JAX package's float32 engine misses its
-     gate too; it is held at its recorded 1.13 x golden), with iterations
-     and pushes beside the
-     golden's, wall seconds, ms per solve point, solve points, full
-     refactors, dirty overflows, MIS levels, the bottom size and peak
-     device memory; (c) a torch.profiler trace of 20 solve points of
-     manhattan3500 -fL: device activities per solve point and the idle
-     share; (d) K1 and K2 launched 0 times.
+     float64 on this file, in both packages); (b) the six incremental
+     acceptance rows (io/acceptance.py INCREMENTAL_ROWS: manhattan3500 and
+     city10k -nsp 1, manhattan3500, intel-scale, vp-scale and trees10k-incr
+     -nsp 1 -fL) through the CLI's code path in float64, each gated at chi2
+     <= 1.05 x the reference binary's golden as in phase 7, with
+     iterations and pushes beside the golden's, wall seconds, ms per solve
+     point, solve points, full refactors, dirty overflows, MIS levels, the
+     bottom size and peak device memory; (c) a torch.profiler trace of 20
+     solve points of manhattan3500 -fL: device activities per solve point
+     and the idle share; (d) K1 and K2 launched 0 times;
+ 11. marginal covariances (marginals/covariance.py), all float64 on the
+     card: (a) each route of Marginals on small scenes (dense and sparse
+     pose-only, the flat Schur route whole and, on a second file, in
+     chunks of 8 landmarks,
+     the sparse-reduced Schur, and the uniform BA route through K1 and K2)
+     against the CPU port on the same lambda at max(1e-10, kappa x eps) x
+     scale (kappa: the condition number of the diagonally equilibrated
+     lambda), the card's float64 assembly at 1e-10 x scale, and one
+     IncrementalMarginals Woodbury update against a recompute; (b) the pose
+     rows manhattan3500, city10k and sphere2500 through the CLI's code path
+     with -dm (the recurrent recovery): 12 sampled vertices' Sigma blocks
+     against host splu columns of the same lambda at max(1e-7, kappa x
+     eps) x scale, the route, MIS levels, bottom blocks, ms per recovery,
+     the printed line and peak memory; (c) the bench scene (the uniform route, K1 and K2, whose
+     launch counters must grow) and venice-real from phase 8 (the chunked
+     flat route), each against mode="sparse_schur" at MARG_BA_TOL x scale
+     on p_diag and l_diag's real dims, with ms per recovery and peak
+     memory; (d) FastL with marginals=True on manhattan3500
+     and intel-scale -nsp 1 -fL: the final chi2 equal to phase 10's to 1e-9
+     relative, the last maintained Sigma diagonal against a recompute from
+     its stores at 1e-8 x scale and every Woodbury update against one at
+     1e-6 (the JAX package's bound), the counts of update and recalculate and
+     the ms per solve point with and without marginals; (e) the
+     data-association app on its 120-pose sphere: the same decisions on the
+     card as on the CPU; the kernels' launches during the phase join their
+     JSON entries.  Phase 10's, phase 11's and the whole smoke's wall times
+     are printed.
 
 The last two lines are a JSON object describing each kernel and the result
 line {"ok": true, "device": {...}}.
@@ -124,6 +150,9 @@ P2C_FLOPS_PER_SLOT = 420   # counted in csrc/p2c.cu; sin, cos, sqrt, division on
 def check(ok, what):
     if not ok:
         raise RuntimeError(f"chip_smoke: FAILED: {what}")
+
+
+T_START = time.perf_counter()
 
 
 def main() -> int:
@@ -177,7 +206,7 @@ def main() -> int:
     t0 = time.perf_counter()
     sparse_schur_check(torch, dev)
     ba_family_rows(torch, dev)
-    venice_row(torch, dev, card, k1)
+    venice_system = venice_row(torch, dev, card, k1)
     print(f"phase 8 (the rest of batch BA): {time.perf_counter() - t0:.1f} s wall")
 
     # ---- 9. the rest of batch solving ------------------------------------
@@ -187,8 +216,15 @@ def main() -> int:
 
     # ---- 10. incremental solving ------------------------------------------
     t0 = time.perf_counter()
-    incremental_phase(torch, dev, card)
-    print(f"phase 10 (incremental solving): {time.perf_counter() - t0:.1f} s wall")
+    phase10 = incremental_phase(torch, dev, card)
+    print(f"phase 10 (incremental solving, float64): {time.perf_counter() - t0:.1f} s wall")
+
+    # ---- 11. marginal covariances -------------------------------------------
+    t0 = time.perf_counter()
+    marginals_phase(torch, dev, card, (k1, k2), venice_system, phase10)
+    del venice_system
+    print(f"phase 11 (marginal covariances, float64): {time.perf_counter() - t0:.1f} s wall")
+    print(f"the whole smoke: {time.perf_counter() - T_START:.1f} s wall")
 
     print(f"card: {card}")
     print(json.dumps({"kernels": [k1, k2]}))
@@ -984,7 +1020,8 @@ def venice_row(torch, dev, card, k1):
     steady ms per LM iteration over 3 more iterations (as
     scripts/venice_real_tpu.py measures it), a stage split of one solve,
     peak device memory, a profile of one LM iteration, and the launch
-    counters: K1 launched during the row, K2 not."""
+    counters: K1 launched during the row, K2 not.  Returns the solved
+    GraphSystem (host arrays: the solver's device buffers go with it)."""
     from slam_plus_plus_tpu_torch.app import main as cli
     from slam_plus_plus_tpu_torch.io import acceptance
     from slam_plus_plus_tpu_torch.ops.p2c import p2c_edge_terms
@@ -1079,6 +1116,7 @@ def venice_row(torch, dev, card, k1):
           f"iteration), build_panels {launches[1]}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_steps(torch, step, states, n_steps=1, what="venice-real LM iteration")
+    return solver.system
 
 
 # ---- phase 9: the rest of batch solving --------------------------------------
@@ -1408,14 +1446,17 @@ def incremental_small_check(torch, dev):
     D.write_g2o_2d(path, edges, poses)
     runs = {}
     for d in ("cpu", dev):
-        fl = FastLSolver(parse_g2o(path), device=d)
+        # the card's float32 engine (dtype=), against the CPU's float64 one
+        fl = FastLSolver(parse_g2o(path), device=d,
+                         dtype=torch.float32 if d == dev else None)
         seen = _first_dirty_step(torch, fl)
         chi2, iters = fl.run()
         check("out" in seen, f"small -fL replay on {d}: no dirty step")
         runs[str(d)] = (fl, seen, chi2, iters)
     (cpu, cseen, chi2_64, it64), (fl, seen, chi2, it) = runs["cpu"], runs[str(dev)]
     inc = fl.inc
-    check(fl.asm.dtype == torch.float32, "small -fL replay: the card path runs float32")
+    check(fl.asm.dtype == torch.float32 and cpu.asm.dtype == torch.float64,
+          "small -fL replay: the card's float32 engine against the CPU's float64 one")
     check((inc.cap_d, inc.cap_e, inc.cap_w, inc.cap_p) ==
           (cpu.inc.cap_d, cpu.inc.cap_e, cpu.inc.cap_w, cpu.inc.cap_p),
           "small -fL replay: card and CPU capacities differ")
@@ -1442,7 +1483,8 @@ def incremental_small_check(torch, dev):
 
 
 def incremental_row(torch, dev, card, label):
-    """One incremental acceptance row through the CLI's code path."""
+    """One incremental acceptance row through the CLI's code path; returns
+    (chi2, ms per solve point)."""
     from slam_plus_plus_tpu_torch.app import main as cli
     from slam_plus_plus_tpu_torch.io import acceptance
     from slam_plus_plus_tpu_torch.solvers.fastl import FastLSolver
@@ -1459,7 +1501,7 @@ def incremental_row(torch, dev, card, label):
     wall = time.perf_counter() - t0
     fl = getattr(solver, "_delegate", None) or solver
     check(isinstance(fl, FastLSolver), f"{label}: not the maintained-factor engine")
-    check(fl.asm.dtype == torch.float32, f"{label}: the card path runs float32")
+    check(fl.asm.dtype == torch.float64, f"{label}: the incremental engine runs float64")
     verdict = row_gate(label, chi2, golden, lambda: float(
         fl.asm.chi2(fl.asm.snapshot_states(parse_g2o(path)))))
     st, inc = fl.stats, fl.inc
@@ -1475,6 +1517,7 @@ def incremental_row(torch, dev, card, label):
           f"{fl.chol.plan.n_bottom} blocks; wall {wall:.1f} s (parse {fl.timing['parse']:.1f} s, "
           f"construct {fl.timing['construct']:.1f} s); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; on {card}")
+    return chi2, ms_point
 
 
 class _Profiled(Exception):
@@ -1522,6 +1565,7 @@ def profile_solve_points(torch, dev, label):
 
 
 def incremental_phase(torch, dev, card):
+    """Returns {row label: (chi2, ms per solve point)}."""
     from slam_plus_plus_tpu_torch.io import acceptance
     from slam_plus_plus_tpu_torch.ops.p2c import p2c_edge_terms
     from slam_plus_plus_tpu_torch.ops.panel import build_panels
@@ -1529,13 +1573,413 @@ def incremental_phase(torch, dev, card):
     p2c_edge_terms.launches = 0
     build_panels.launches = 0
     incremental_small_check(torch, dev)
-    for label in acceptance.INCREMENTAL_ROWS:
-        incremental_row(torch, dev, card, label)
+    rows = {label: incremental_row(torch, dev, card, label)
+            for label in acceptance.INCREMENTAL_ROWS}
     profile_solve_points(torch, dev, "manhattan3500 -nsp 1 -fL")
     launches = (p2c_edge_terms.launches, build_panels.launches)
     check(launches == (0, 0), f"phase 10 launched K1/K2 {launches} times")
     print(f"launches during phase 10: p2c_edge_terms {launches[0]}, build_panels "
           f"{launches[1]} (no Pallas kernel lies on this path)")
+    return rows
+
+
+# ---- phase 11: marginal covariances -------------------------------------------
+
+#: (a) the small scenes of tests/test_torch_marginals.py: case -> (scene,
+#: mode, chunk, gauge jitter, route).  Each route runs on the card from the
+#: CPU's float64 lambda, so the comparison sees the recovery alone.
+#: Sigma = lambda^-1 differs between two correct float64 inversions by up to
+#: kappa x 2.2e-16 (kappa: the condition number of the diagonally
+#: equilibrated lambda, 1e7-1e9 here), so the tolerance is
+#: max(1e-10, kappa x eps)
+MARG_SMALL = {
+    "dense": ("manhattan60", "auto", None, 0.0, "dense"),
+    "sparse": ("manhattan60", "sparse", None, 0.0, "sparse"),
+    "schur_flat": ("landmark50_20", "auto", None, 0.0, "schur_flat"),
+    "schur_flat_chunks_of_8": ("landmark50_30", "auto", 8, 0.0, "schur_flat"),
+    "sparse_schur": ("landmark600_90", "sparse_schur", None, 0.0, "sparse_schur"),
+    "ba_uniform": ("ba6_60", "auto", None, 1e-10, "schur_uniform"),
+}
+#: the gauge jitter of the BA rows (the JAX BA facade's, app/ba_optimizer.py:123)
+BA_JITTER = 1e-10
+#: (b) sampled vertices per pose row, and the gate against host splu columns
+#: (tests/test_marginals.py:142-172): 1e-7 x scale, or kappa x 2.2e-16 where
+#: the row's diagonally equilibrated lambda has a larger condition number
+#: kappa (two correct float64 inversions differ by up to that much; on the
+#: solved manhattan3500 and sphere2500 kappa is ~6e10 and host splu and a
+#: dense Cholesky already differ by 1.0e-7 and 2.2e-7, my CPU runs)
+MARG_SAMPLES, MARG_SPLU_TOL = 12, 1e-7
+MARG_POSE_ROWS = ("manhattan3500", "city10k", "sphere2500")
+#: (c) the two routes of a BA row against each other, x scale (stated in
+#: PERF.md before the first run: the CPU read 7e-8 - 3.4e-7 on BA scenes of
+#: 20-100 cameras at this jitter)
+MARG_BA_TOL = 1e-5
+#: (d) the last maintained diagonal against a recompute from the same
+#: stores, and the final chi2 against the same row's in phase 10, relative
+MARG_FASTL_TOL, MARG_CHI2_TOL = 1e-8, 1e-9
+#: (d) every Woodbury update against a recompute from the same stores: the
+#: JAX package's own bound for it (tests/test_fastl.py:103); an update and
+#: a recompute of an ill-conditioned lambda (kappa ~5e10 on manhattan3500)
+#: differ by 1e-9 - 1e-7 in float64, one update to the next
+MARG_UPDATE_TOL = 1e-6
+MARG_FASTL_ROWS = ("manhattan3500 -nsp 1 -fL", "intel-scale -nsp 1 -fL")
+#: (e) the data-association demo's scene (app/dataassoc_example.py)
+ASSOC_SPHERE = dict(n_poses=120, trans_noise=0.01, rot_noise=0.005, seed=4)
+
+
+def _synced_ms(torch, fn, reps=3):
+    """Median host ms of fn() over reps synchronized calls, after a warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def _l_real(l_diag, asm):
+    """The real tangent dims of each landmark block, stacked (padded dims
+    mean nothing)."""
+    l_diag = l_diag.double().cpu().numpy()
+    Bl = asm.Bl
+    return np.concatenate([l_diag[c].reshape(Bl, Bl)[np.ix_(m, m)].ravel()
+                           for c, m in enumerate(asm.l_mask.astype(bool)[:asm.Nl])])
+
+
+def _marg_rel(got, want, asm):
+    """(p_diag, l_diag's real dims): max |got - want| over the largest
+    |want|."""
+    gp, wp = got.p_diag.double().cpu(), want.p_diag.double().cpu()
+    p = float((gp - wp).abs().max() / wp.abs().max())
+    if not asm.Nl:
+        return p, 0.0
+    gl, wl = _l_real(got.l_diag, asm), _l_real(want.l_diag, asm)
+    return p, float(np.abs(gl - wl).max() / np.abs(wl).max())
+
+
+def _small_marginal_scenes():
+    """The files of (a), written beside the built kernels."""
+    from slam_plus_plus_tpu_torch.io import datasets as D
+
+    d = _scene_dir()
+    out = {name: os.path.join(d, f"marg_{name}.g2o") for name in
+           ("manhattan60", "landmark50_20", "landmark50_30", "landmark600_90", "ba6_60",
+            "held_out")}
+    poses, edges = D.make_manhattan_2d(n_poses=60, seed=13)
+    D.write_g2o_2d(out["manhattan60"], edges, poses)
+    for name, kw in (("landmark50_20", dict(n_poses=50, n_landmarks=20, seed=14)),
+                     ("landmark50_30", dict(n_poses=50, n_landmarks=30, seed=15)),
+                     ("landmark600_90", dict(n_poses=600, n_landmarks=90, world=35.0,
+                                             obs_radius=9.0, seed=17))):
+        _gp, _gl, pe, le = D.make_landmark_2d(**kw)
+        D.write_g2o_landmark_2d(out[name], pe, le)
+    D.write_g2o_ba(out["ba6_60"], *D.make_ba_scene(n_cams=6, n_points=60, seed=2))
+    # manhattan 150, seed 16, with its loop closures written last (the last
+    # one is held out of the first lambda)
+    poses, edges = D.make_manhattan_2d(n_poses=150, seed=16)
+    odo = [e for e in edges if abs(e[1] - e[0]) == 1]
+    clo = [e for e in edges if abs(e[1] - e[0]) != 1]
+    with open(out["held_out"], "w") as f:
+        for i, x in enumerate(poses):
+            f.write(f"VERTEX2 {i} {x[0]:.10f} {x[1]:.10f} {x[2]:.10f}\n")
+        for (i, j, z, info) in odo + clo:
+            ut = [info[0, 0], info[0, 1], info[0, 2], info[1, 1], info[1, 2], info[2, 2]]
+            f.write(f"EDGE2 {i} {j} " + " ".join(f"{v:.10f}" for v in z) + " " +
+                    " ".join(f"{v:.10f}" for v in ut) + "\n")
+    return out
+
+
+def marginals_small_check(torch, dev):
+    """(a): each Marginals route on the card against the CPU port on the
+    CPU's float64 lambda; the card's own float64 assembly against the CPU's
+    (through K1 on the BA scene, whose uniform route runs K2); and
+    IncrementalMarginals' Woodbury update on the card against a recompute
+    of the grown lambda."""
+    from slam_plus_plus_tpu_torch.assembly.assembler import Assembler, BlockSystem
+    from slam_plus_plus_tpu_torch.io.parser import parse_g2o
+    from slam_plus_plus_tpu_torch.linalg import schur
+    from slam_plus_plus_tpu_torch.linalg.bsr import partitioned_to_scipy
+    from slam_plus_plus_tpu_torch.marginals import IncrementalMarginals, Marginals
+
+    files = _small_marginal_scenes()
+    for case, (scene, mode, chunk, jitter, route) in MARG_SMALL.items():
+        system = parse_g2o(files[scene])
+        cpu = Assembler(system, device="cpu")
+        card = Assembler(system, device=dev, dtype=torch.float64)
+        bs = cpu.assemble(cpu.snapshot_states(system))
+        A = partitioned_to_scipy(cpu.pp_rows, cpu.pp_cols, bs.pp_blocks.numpy(), cpu.Np, cpu.Bp,
+                                 cpu.pl_rows, cpu.pl_cols, bs.pl_blocks.numpy(),
+                                 bs.ll_blocks.numpy(), cpu.Nl, cpu.Bl).toarray()
+        A += np.eye(len(A)) * float(bs.max_hdiag) * jitter
+        d = 1.0 / np.sqrt(np.diag(A))
+        kappa = np.linalg.cond(A * d[:, None] * d[None, :])
+        tol = max(1e-10, kappa * np.finfo(np.float64).eps)
+        bs_card = card.assemble(card.snapshot_states(system))
+        asm_err = max(float((g.cpu() - w).abs().max()) / max(float(w.abs().max()), 1.0)
+                      for g, w in zip(bs_card, bs))
+        check(asm_err <= 1e-10, f"marginals {case}: card assembly {asm_err:.3e} x scale")
+        pick = schur._pick_chunk
+        if chunk:   # the flat panels cut at `chunk` landmarks
+            schur._pick_chunk = lambda *_a: chunk
+        margs = [Marginals(a, gauge_jitter=jitter, mode=mode) for a in (cpu, card)]
+        schur._pick_chunk = pick
+        check(not chunk or len(margs[1]._schur._flat_chunks()) >= 2,
+              f"marginals {case}: one chunk")
+        check(all(m.route == route for m in margs), f"marginals {case}: route {margs[1].route}")
+        want = margs[0].compute(bs)
+        got = margs[1].compute(BlockSystem(*[x.to(dev) for x in bs]))
+        check(bool(torch.isfinite(got.p_diag).all() and torch.isfinite(got.l_diag).all()),
+              f"marginals {case}: not finite")
+        p_err, l_err = _marg_rel(got, want, cpu)
+        check(p_err <= tol and l_err <= tol,
+              f"marginals {case}: p_diag {p_err:.3e}, l_diag {l_err:.3e} > {tol:g} x scale")
+        print(f"marginals (a) {case} ({scene}, route {route}): the card against the CPU port "
+              f"on the same lambda, p_diag {p_err:.3e}, l_diag's real dims {l_err:.3e} x scale "
+              f"(tol {tol:.1e}; kappa {kappa:.2e}); the card's float64 assembly {asm_err:.3e} "
+              f"x scale (tol 1e-10)")
+
+    system = parse_g2o(files["held_out"])
+    asm = Assembler(system, device=dev, dtype=torch.float64)
+    states = asm.snapshot_states(system)
+    name = list(system.edge_stores)[0]
+    n = system.edge_stores[name].n
+    inc = IncrementalMarginals(asm)
+    inc.compute(asm.assemble_active(states, {name: n - 1}, asm.Np, 0))
+    G = IncrementalMarginals.omega_sqrt_for_edges(asm, states, name, [n - 1])
+    got = inc.update(G)
+    want = Marginals(asm).compute(asm.assemble_active(states, {name: n}, asm.Np, 0)).p_diag
+    err = float((got - want).abs().max() / want.abs().max())
+    check(err <= 1e-8, f"IncrementalMarginals.update on the card: {err:.3e} x scale")
+    print(f"marginals (a) IncrementalMarginals: one Woodbury update (rank {G.shape[1]}) on the "
+          f"card against a recompute of the grown lambda, {err:.3e} x scale (tol 1e-8)")
+
+
+def marginals_pose_row(torch, dev, card, name):
+    """(b): a pose row solved through the CLI's code path with -dm; the
+    Sigma blocks of MARG_SAMPLES vertices against host splu columns of the
+    same lambda; the recovery's ms and peak memory."""
+    import scipy.sparse
+    import scipy.sparse.linalg as spla
+
+    from slam_plus_plus_tpu_torch.app import main as cli
+    from slam_plus_plus_tpu_torch.io import acceptance
+    from slam_plus_plus_tpu_torch.linalg.bsr import partitioned_to_scipy
+
+    flags, _golden = acceptance.ROWS[name]
+    args = cli.build_argparser().parse_args(
+        ["-i", pose_dataset(name), "--device", dev.type, "-s", "-dx", "", "-dm"] + flags)
+    torch.cuda.reset_peak_memory_stats()
+    _chi2, _iters, solver = cli.run(args)
+    marg, bs, res, line = solver.marginals_report
+    asm = marg.asm
+    check(asm.dtype == torch.float64 and marg.route == "sparse",
+          f"{name} -dm: {asm.dtype}, route {marg.route}")
+    Np, Bp = asm.Np, asm.Bp
+    A = partitioned_to_scipy(asm.pp_rows, asm.pp_cols, bs.pp_blocks.cpu().numpy(), Np, Bp)
+    t0 = time.perf_counter()
+    d = scipy.sparse.diags(1.0 / np.sqrt(A.diagonal()))
+    eq = (d @ A @ d).tocsc()
+    kappa = (spla.eigsh(eq, k=1, which="LA", return_eigenvectors=False)[0] /
+             spla.eigsh(eq, k=1, sigma=0, which="LM", return_eigenvectors=False)[0])
+    tol = max(MARG_SPLU_TOL, kappa * np.finfo(np.float64).eps)
+    lu = spla.splu(A.tocsc())
+    picks = np.random.default_rng(0).choice(Np, size=MARG_SAMPLES, replace=False)
+    cols = np.zeros((Np * Bp, MARG_SAMPLES * Bp))
+    for i, v in enumerate(picks):
+        cols[v * Bp + np.arange(Bp), i * Bp + np.arange(Bp)] = 1.0
+    S = lu.solve(cols)
+    t_splu = time.perf_counter() - t0
+    p_diag = res.p_diag.cpu().numpy()
+    scale = np.abs(p_diag).max()
+    err = max(np.abs(p_diag[v] - S[v * Bp:(v + 1) * Bp, i * Bp:(i + 1) * Bp].T.ravel()).max()
+              for i, v in enumerate(picks)) / scale
+    check(np.isfinite(err) and err <= tol,
+          f"{name} -dm: sampled Sigma blocks {err:.3e} x scale from host splu (tol {tol:.1e})")
+    ms = _synced_ms(torch, lambda: marg.compute(bs))
+    chol = marg._sparse
+    print(f"marginals (b) {name} ({Np} x {Bp} dims, float64; the CLI's -dm after "
+          f"{' '.join(flags) or 'GN'}): route {marg.route}, {chol.n_levels} MIS levels, bottom "
+          f"{chol.plan.n_bottom} blocks; {MARG_SAMPLES} sampled Sigma blocks against host splu "
+          f"columns of the same lambda {err:.3e} x scale (tol {tol:.1e}: the equilibrated "
+          f"lambda's kappa {kappa:.2e} x eps, at least {MARG_SPLU_TOL:g}; kappa and splu "
+          f"{t_splu:.1f} s on the host); {ms:.2f} ms per recovery (median of 3 after a warm-up, "
+          f"synchronized); printed '{line}'; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; on {card}")
+
+
+def marginals_ba_row(torch, dev, card, label, system, route):
+    """(c): a BA scene's float64 marginals at the gauge jitter, by its own
+    route and by mode="sparse_schur"; the two must agree within MARG_BA_TOL
+    on p_diag and on l_diag's real dims.  Returns the routes' ms."""
+    from slam_plus_plus_tpu_torch.assembly.assembler import Assembler
+    from slam_plus_plus_tpu_torch.marginals import Marginals
+
+    t0 = time.perf_counter()
+    asm = Assembler(system, device=dev, dtype=torch.float64)
+    bs = asm.assemble(asm.snapshot_states(system))
+    t_asm = time.perf_counter() - t0
+    out, line = {}, []
+    for mode in ("auto", "sparse_schur"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        marg = Marginals(asm, gauge_jitter=BA_JITTER, mode=mode)
+        t_plan = time.perf_counter() - t0
+        res = marg.compute(bs)
+        check(bool(torch.isfinite(res.p_diag).all() and torch.isfinite(res.l_diag).all()),
+              f"{label} marginals ({marg.route}): not finite")
+        ms = _synced_ms(torch, lambda: marg.compute(bs))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        sch = marg._schur
+        shape = (f"{len(sch._flat_chunks())} chunks of {sch.chunk} landmarks"
+                 if marg.route == "schur_flat" else
+                 f"Ksc {sch.Ksc}, {len(sch.fill_pa)} observation pairs, "
+                 f"{sch.reduced_chol.n_levels} MIS levels, bottom "
+                 f"{sch.reduced_chol.plan.n_bottom}" if marg.route == "sparse_schur" else
+                 "K1 + K2 panels")
+        line.append(f"{marg.route} ({shape}): {ms:.1f} ms per recovery, plan {t_plan:.1f} s, "
+                    f"peak {peak:.2f} GiB")
+        out[marg.route] = (res, ms)
+        del marg
+    check(route in out, f"{label}: routes {list(out)}, not {route}")
+    (a, _), (b, _) = out[route], out["sparse_schur"]
+    p_err, l_err = _marg_rel(a, b, asm)
+    check(p_err <= MARG_BA_TOL and l_err <= MARG_BA_TOL,
+          f"{label} marginals: {route} against sparse_schur p_diag {p_err:.3e}, l_diag "
+          f"{l_err:.3e} > {MARG_BA_TOL:g} x scale")
+    print(f"marginals (c) {label} ({asm.Np} x {asm.Bp} + {asm.Nl} x {asm.Bl} dims, float64, "
+          f"gauge jitter {BA_JITTER:g}; assemble {t_asm:.1f} s): " + "; ".join(line) +
+          f"; {route} against sparse_schur: p_diag {p_err:.3e}, l_diag's real dims "
+          f"{l_err:.3e} x scale (tol {MARG_BA_TOL:g}); Sigma_pp "
+          f"{(asm.Np * asm.Bp) ** 2 * 8 / 1e6:.0f} MB; on {card}")
+    return {r: ms for r, (_res, ms) in out.items()}
+
+
+def marginals_fastl_row(torch, dev, card, label, phase10):
+    """(d): the row's FastL replay with marginals=True, as the CLI builds
+    it: the final chi2 against phase 10's run of the row without
+    marginals; every Woodbury update, and the last maintained diagonal,
+    each against a recompute from the stores it was taken at; the counts of
+    update and recalculate and the ms per solve point with and without
+    marginals (with them: the replay's seconds less the checks' own, each
+    check timed between two synchronizations)."""
+    from slam_plus_plus_tpu_torch.io import acceptance
+    from slam_plus_plus_tpu_torch.io.parser import parse_g2o
+    from slam_plus_plus_tpu_torch.solvers.fastl import FastLSolver
+
+    name, flags, _golden, _iters = acceptance.INCREMENTAL_ROWS[label]
+    check(flags[-3:] == ["-nsp", "1", "-fL"], f"{label}: not a -nsp 1 -fL row")
+    t0 = time.perf_counter()
+    fl = FastLSolver(parse_g2o(pose_dataset(name)), device=dev, every_n=1,
+                     max_iterations=10, dx_threshold=20.0, marginals=True)
+    update_errs, last = [], {"check_s": 0.0}
+
+    def rel_to_recompute(stores):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fresh = fl.chol.marginals_from_stores(stores, fl.inc)[fl.chol._diag_pos0]
+        err = float((fl._sigma_diag - fresh).abs().max() / fresh.abs().max())
+        last["check_s"] += time.perf_counter() - t
+        return err
+
+    for attr in ("_sigma_update", "_sigma_recompute"):
+        inner = getattr(fl, attr)
+
+        def spy(stores, *a, inner=inner, attr=attr):
+            inner(stores, *a)
+            # read now: the dirty steps after it update the stores in place
+            last["err"] = rel_to_recompute(stores)
+            if attr == "_sigma_update":
+                update_errs.append(last["err"])
+
+        setattr(fl, attr, spy)
+    torch.cuda.reset_peak_memory_stats()
+    chi2, iters = fl.run()
+    wall = time.perf_counter() - t0
+    check(fl.asm.dtype == torch.float64, f"{label}: the incremental engine runs float64")
+    chi2_10, ms_10 = phase10[label]
+    rel = abs(chi2 - chi2_10) / chi2_10
+    check(rel <= MARG_CHI2_TOL, f"{label} with marginals: chi2 {chi2} against phase 10's "
+          f"{chi2_10}, {rel:.3e} relative")
+    check(last["err"] <= MARG_FASTL_TOL,
+          f"{label}: the last maintained Sigma {last['err']:.3e} x scale from a recompute")
+    worst = max(update_errs)
+    check(worst <= MARG_UPDATE_TOL,
+          f"{label}: a Woodbury update {worst:.3e} x scale from a recompute")
+    st = fl.stats
+    ms_point = (st["elapsed"] - last["check_s"]) / max(st["solve_points"], 1) * 1e3
+    trace = fl.marginals_trace
+    print(f"marginals (d) {label} with marginals=True: chi2 {chi2:.6f} in "
+          f"{iters} iterations, phase 10's {chi2_10:.6f} ({rel:.1e} relative, tol "
+          f"{MARG_CHI2_TOL:g}); {trace.count('update')} updates, "
+          f"{trace.count('recalculate')} recalculates over {st['solve_points']} solve points; "
+          f"the last maintained Sigma diagonal ({trace[-1]}) against a recompute from its "
+          f"stores {last['err']:.3e} x scale (tol {MARG_FASTL_TOL:g}); every Woodbury update "
+          f"against a recompute from its stores: median {statistics.median(update_errs):.3e}, "
+          f"largest {worst:.3e}, {sum(e > MARG_FASTL_TOL for e in update_errs)} over "
+          f"{MARG_FASTL_TOL:g} (tol {MARG_UPDATE_TOL:g}); {ms_point:.2f} ms per solve point "
+          f"with marginals (the checks' {last['check_s']:.1f} s taken out), {ms_10:.2f} "
+          f"without (phase 10); wall {wall:.1f} s with construction and the checks; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; on {card}")
+
+
+def association_check(torch, dev):
+    """(e): the data-association app on its demo sphere, on the card and on
+    the CPU: the same decisions."""
+    from slam_plus_plus_tpu_torch.app.dataassoc_example import run_association
+    from slam_plus_plus_tpu_torch.io import datasets as D
+    from slam_plus_plus_tpu_torch.io.parser import parse_g2o
+
+    path = os.path.join(_scene_dir(), "dataassoc_sphere120.g2o")
+    poses, edges = D.make_sphere_3d(**ASSOC_SPHERE)
+    D.write_g2o_3d(path, edges, poses)
+    runs = {}
+    for d in (dev, "cpu"):
+        system = parse_g2o(path)
+        n = len(system.vertex_order)
+        cands = system.vertex_order[:-1][::max(1, n // 12)]
+        t0 = time.perf_counter()
+        decisions, sv = run_association(system, system.vertex_order[-1], cands, device=d)
+        runs[str(d)] = (decisions, sv, time.perf_counter() - t0)
+    (got, sv, t_card), (want, _cpu, t_cpu) = runs[str(dev)], runs["cpu"]
+    check([ok for (_c, _m, ok, _d2) in got] == [ok for (_c, _m, ok, _d2) in want],
+          "data association: the card's decisions differ from the CPU's")
+    d2 = max(abs(g[3] - w[3]) / w[3] for g, w in zip(got, want))
+    print(f"marginals (e) data association (sphere {ASSOC_SPHERE['n_poses']} poses): "
+          f"{sum(ok for (_c, _m, ok, _d2) in got)}/{len(got)} candidates associated on the card "
+          f"and on the CPU, the same decisions; squared distances {d2:.2e} relative apart; "
+          f"{sv.marginals_trace.count('update')} updates; {t_card:.1f} s on the card, "
+          f"{t_cpu:.1f} s on the CPU")
+
+
+def marginals_phase(torch, dev, card, kernels, venice_system, phase10):
+    from slam_plus_plus_tpu_torch.io.parser import parse_g2o
+    from slam_plus_plus_tpu_torch.ops.p2c import p2c_edge_terms
+    from slam_plus_plus_tpu_torch.ops.panel import build_panels
+
+    p2c_edge_terms.launches = 0
+    build_panels.launches = 0
+    marginals_small_check(torch, dev)
+    for name in MARG_POSE_ROWS:
+        marginals_pose_row(torch, dev, card, name)
+    before = (p2c_edge_terms.launches, build_panels.launches)
+    bench = parse_g2o(os.path.join(_scene_dir(), f"bench_ba_{N_CAMS}_{N_POINTS}_{SCENE_SEED}.txt"))
+    marginals_ba_row(torch, dev, card, "bench scene", bench, "schur_uniform")
+    grew = (p2c_edge_terms.launches - before[0], build_panels.launches - before[1])
+    check(all(g > 0 for g in grew), f"the bench scene's marginals launched K1/K2 {grew} times")
+    print(f"marginals (c) bench scene: K1 launched {grew[0]}, K2 {grew[1]} times")
+    del bench
+    marginals_ba_row(torch, dev, card, "venice-real", venice_system, "schur_flat")
+    for label in MARG_FASTL_ROWS:
+        marginals_fastl_row(torch, dev, card, label, phase10)
+    association_check(torch, dev)
+    launches = (p2c_edge_terms.launches, build_panels.launches)
+    for k, n in zip(kernels, launches):
+        k["launches_marginals"] = n
+    print(f"launches during phase 11: p2c_edge_terms {launches[0]}, build_panels {launches[1]}")
 
 
 if __name__ == "__main__":

@@ -4,7 +4,7 @@ slam_plus_plus_tpu/app/main.py, reference src/slam_app/Main.cpp:41).
     python -m slam_plus_plus_tpu_torch.app.main -i file.g2o [-po] [-A | -lm | -dl]
         [-nsp N | -lsp N] [-fL] [-mnsi N] [-nset X]
         [-v] [-s] [-mfnsi N] [-fnset X] [-us] [-nb] [-dx FILE] [-gt FILE]
-        [--rpe-delta N] [--device cuda|cpu]
+        [--rpe-delta N] [-dm] [--device cuda|cpu]
 
   -i <file>      input dataset (g2o dialect: mono, intrinsics, stereo and
                  spheron BA; SE(2) and SE(3) pose graphs and landmarks; ROCV)
@@ -29,13 +29,18 @@ slam_plus_plus_tpu/app/main.py, reference src/slam_app/Main.cpp:41).
   -dx <file>     write the solution (default solution.txt; '' disables)
   -gt <file>     ground truth (g2o vertex lines or a solution file): print
                  ATE and RPE after the solve; --rpe-delta sets RPE's step
+  -dm            after the solve, the marginal covariances of the solution
+                 (marginals/covariance.py, float64 on either device): print
+                 the mean pose sigma
   -s / -v        silent / verbose
-  --device       cuda (default; float32) or cpu (float64).  There is no
-                 fallback: cuda without a card is an error.
+  --device       cuda (default; float32 batch solvers, float64 incremental
+                 ones) or cpu (float64).  There is no fallback: cuda without
+                 a card is an error.
 
 The printed lines match the JAX CLI's: ``initial denormalized chi2 error``
 (with -v, batch), ``done. it took``, ``solver took N iterations``,
-``denormalized chi2 error``, the ATE/RPE lines and ``solution written to``;
+``denormalized chi2 error``, the ATE/RPE lines, ``marginals: mean pose
+sigma`` and ``solution written to``;
 a missing -i or a file with no edges prints the JAX CLI's error and
 returns 1.
 """
@@ -72,6 +77,7 @@ def build_argparser():
     p.add_argument("-dx", "--solution", default="solution.txt")
     p.add_argument("-gt", "--ground-truth", default=None)
     p.add_argument("--rpe-delta", type=int, default=1)
+    p.add_argument("-dm", "--marginals", action="store_true")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     return p
 
@@ -83,8 +89,10 @@ class DatasetError(ValueError):
 def run(args):
     """Parse, solve (incremental: FastL or the incremental lambda solver;
     batch: GN, A, Lambda-LM or Lambda-DL), print the reference CLI's lines,
-    evaluate against -gt and write -dx.  Returns (final chi2, iterations,
-    the solver); raises DatasetError on a file with no edges."""
+    evaluate against -gt, recover -dm's marginals and write -dx.  Returns
+    (final chi2, iterations, the solver; with -dm the solver's
+    ``marginals_report`` holds marginals_report's result); raises
+    DatasetError on a file with no edges."""
     from slam_plus_plus_tpu_torch.io.parser import parse_g2o, peek_dataset
     from slam_plus_plus_tpu_torch.solvers.a_solver import ASolver
     from slam_plus_plus_tpu_torch.solvers.dogleg import DoglegSolver
@@ -131,11 +139,32 @@ def run(args):
     print(f"denormalized chi2 error: {chi2:.2f}")
     if args.ground_truth:
         _evaluate_vs_ground_truth(system, args.ground_truth, args.rpe_delta)
+    if args.marginals:
+        solver.marginals_report = marginals_report(system, args.device)
     if args.solution:
         _dump_solution(system, args.solution)
         if not args.silent:
             print(f"solution written to {args.solution}")
     return chi2, iters, solver
+
+
+def marginals_report(system, device):
+    """-dm: a float64 assembly of the solved system on ``device``, its
+    marginal covariances (the Marginals route for its size), and the JAX
+    CLI's line ``marginals: mean pose sigma`` (the root of the mean |entry|
+    of the pose blocks).  Returns (Marginals, the block system, the result,
+    the line)."""
+    import torch
+    from slam_plus_plus_tpu_torch.assembly.assembler import Assembler
+    from slam_plus_plus_tpu_torch.marginals import Marginals
+
+    asm = Assembler(system, device=device, dtype=torch.float64)
+    bs = asm.assemble(asm.snapshot_states(system))
+    marg = Marginals(asm)
+    res = marg.compute(bs)
+    line = f"marginals: mean pose sigma {float(torch.sqrt(res.p_diag.abs().mean())):.6f}"
+    print(line)
+    return marg, bs, res, line
 
 
 def _evaluate_vs_ground_truth(system, gt_path, rpe_delta):

@@ -1,10 +1,21 @@
 """Configuration: dtype and device policy, and the solver settings.
 
-The reference is double precision everywhere.  Policy, as in the JAX
-package (slam_plus_plus_tpu/config.py):
+The reference is double precision everywhere.  Policy:
 
-  * on ``cpu`` (tests, verification): float64;
-  * on ``cuda``: float32.
+  * on ``cpu`` (tests, verification): float64 everywhere;
+  * on ``cuda``, the batch solvers: float32, as the JAX package on its
+    accelerator (``default_dtype``);
+  * on ``cuda``, the incremental engine (FastL and the incremental lambda
+    solver, ``incremental_dtype``) and marginal covariances (the CLI's -dm,
+    FastL's in-loop marginals): float64.
+    The card runs float64 natively; float32 misses the trees10k-incr
+    golden (the JAX package's own float32 engine does too), float64 hits
+    every incremental golden and is no slower on the launch-bound engine,
+    and a covariance recovered through the float32 bottom factor would
+    inherit its ridge (PERF.md section 5, ROADMAP.md Queue 3).
+
+Every solver that builds an Assembler takes ``dtype=`` (the JAX package's
+``SolverConfig.dtype`` override); None takes the policy above.
 
 The device is always explicit: every entry point takes a ``device`` and
 there is no fallback from one device to another.  Nothing here sets a global
@@ -12,8 +23,10 @@ default dtype, because tests share worker processes.
 
 Of the JAX package's SolverConfig the port carries, in ``SolverSettings``,
 the fields that a caller of the port sets to a second value: the linear
-backend, the landmark split and the edge layout.  The others keep the JAX
-package's defaults as constants (the float32 PCG's 12 trips, LM's damping
+backend, the landmark split and the edge layout.  The JAX package's
+MarginalsPolicy becomes FastL's ``marginals`` flag: no caller sets its
+refresh interval or its update switch to a second value, and its ``part``
+is read nowhere.  The others keep the JAX package's defaults as constants (the float32 PCG's 12 trips, LM's damping
 derived from the diagonal, each edge type's own robust loss) until a
 caller needs another value; ``dogleg_radius`` is read nowhere in the JAX
 package.
@@ -61,6 +74,12 @@ def default_dtype(device) -> torch.dtype:
     if dev.type == "cuda":
         return torch.float32
     raise ValueError(f"unsupported device {dev}; use 'cpu' or 'cuda'")
+
+
+def incremental_dtype(device) -> torch.dtype:
+    """float64 on both devices: the incremental engine and marginals."""
+    default_dtype(device)   # rejects an unsupported device
+    return torch.float64
 
 
 def pin_precision() -> None:

@@ -19,8 +19,13 @@ S = diag(lambda)^-1/2.  The float32 aids of the JAX package are kept and
 chosen by the dtype of the blocks, not by the device: a relative ridge on
 each level's pivot blocks, and a ridge ladder on the dense bottom factor
 (one host read of the factorization's status per factor).  The depth cap
-(8 levels in float32) is the caller's ``max_levels``.  The marginals
-recurrence of the JAX module is ROADMAP.md Queue 1 item 20.
+(8 levels in float32) is the caller's ``max_levels``.
+
+The factor's per-level artifacts also serve the recurrent marginal
+covariance recovery (``marginals``: the Takahashi recurrence closes over
+the fill pattern the plan already enumerates), and ``solve_with_factor``
+takes several right-hand sides at once ([N, B, k]) for the Woodbury
+updates of maintained marginals.
 
 All block storage is planar [K, B*B] (see ops/planar.py).
 """
@@ -297,8 +302,16 @@ def _equilibrated_cholesky(dense):
 
 
 def _bottom_solve(L, s, rhs):
-    y = torch.linalg.solve_triangular(L, (rhs * s)[:, None], upper=False)
-    return s * torch.linalg.solve_triangular(L.mT, y, upper=True)[:, 0]
+    """rhs [nb, k] -> [nb, k] through the equilibrated bottom factor."""
+    y = torch.linalg.solve_triangular(L, rhs * s[:, None], upper=False)
+    return s[:, None] * torch.linalg.solve_triangular(L.mT, y, upper=True)
+
+
+def _bmm_t(W, x):
+    """Per-block W^T x: W [K, B*B] planar, x [K, B, k] -> [K, B, k] (as a
+    [K, k, B] product, which is ``planar.bmv_At``'s for k = 1)."""
+    K, B = x.shape[0], x.shape[1]
+    return torch.bmm(x.transpose(1, 2), W.reshape(K, B, B)).transpose(1, 2)
 
 
 class _DeviceLevel(NamedTuple):
@@ -306,6 +319,7 @@ class _DeviceLevel(NamedTuple):
     n: int
     n_next: int
     n_elim: int
+    K: int
     K_next: int
     has_fill: bool
     elim_orig: torch.Tensor
@@ -347,7 +361,7 @@ class BlockCholeskySolver:
             return torch.as_tensor(np.asarray(x), device=self.device)
 
         self._levels = [_DeviceLevel(
-            lv.n, lv.n_next, lv.n_elim, lv.K_next, bool(len(lv.pa)),
+            lv.n, lv.n_next, lv.n_elim, lv.K, lv.K_next, bool(len(lv.pa)),
             t(lv.elim_orig), t(lv.rest_orig), t(lv.elim_diag_idx), t(lv.u_src),
             t(lv.u_flip), t(lv.u_elim), t(lv.u_rest_next), t(lv.pa), t(lv.pb),
             t(lv.p_flip), t(lv.p_dst), t(lv.carry_src), t(lv.carry_dst))
@@ -413,17 +427,18 @@ class BlockCholeskySolver:
         return dense.reshape(nb, nb)
 
     def _ascend(self, x_bottom, c_invs, Ws, etas):
-        """Back-substitute up through the levels."""
+        """Back-substitute up through the levels ([n, B, k] columns)."""
         B = self.B
-        x = x_bottom  # [n_bottom, B]
+        x = x_bottom  # [n_bottom, B, k]
+        k = x.shape[2]
         for li in range(len(self._levels) - 1, -1, -1):
             lv = self._levels[li]
             # x_e = C^-1 eta_e - sum_u W_u^T x_rest(u)
-            corr = planar.bmv_At(Ws[li], x[lv.u_rest_next], B, B)
-            seg = torch.zeros((lv.n_elim, B), dtype=x.dtype, device=x.device)
+            corr = _bmm_t(Ws[li], x[lv.u_rest_next])
+            seg = torch.zeros((lv.n_elim, B, k), dtype=x.dtype, device=x.device)
             seg.index_add_(0, lv.u_elim, corr)
-            x_e = planar.bmv(c_invs[li], etas[li], B, B) - seg
-            xk = torch.zeros((lv.n, B), dtype=x.dtype, device=x.device)
+            x_e = torch.bmm(c_invs[li].reshape(-1, B, B), etas[li]) - seg
+            xk = torch.zeros((lv.n, B, k), dtype=x.dtype, device=x.device)
             xk[lv.rest_orig] = x
             xk[lv.elim_orig] = x_e
             x = xk
@@ -440,21 +455,25 @@ class BlockCholeskySolver:
         return BlockCholeskyFactor(tuple(c_invs), tuple(Ws), L, s, sv)
 
     def solve_with_factor(self, f: BlockCholeskyFactor, eta):
-        """eta [N, B] -> dx [N, B]."""
+        """eta [N, B] -> dx [N, B], or k right-hand sides at once: eta
+        [N, B, k] -> dx [N, B, k] in one descent and one ascent."""
         B = self.B
+        cols = eta.dim() == 3
+        eta = (eta if cols else eta[:, :, None]) * f.s_vert[:, :, None]
+        k = eta.shape[2]
         etas = []
-        eta = eta * f.s_vert
         for lv, W in zip(self._levels, f.Ws):
             eta_E = eta[lv.elim_orig]
             etas.append(eta_E)
-            corr = planar.bmv(W, eta_E[lv.u_elim], B, B)
-            seg = torch.zeros((lv.n_next, B), dtype=eta.dtype, device=eta.device)
+            corr = torch.bmm(W.reshape(-1, B, B), eta_E[lv.u_elim])
+            seg = torch.zeros((lv.n_next, B, k), dtype=eta.dtype, device=eta.device)
             seg.index_add_(0, lv.u_rest_next, corr)
             eta = eta[lv.rest_orig] - seg
         nb = self.plan.n_bottom * B
-        xb = _bottom_solve(f.L_bottom, f.scale, eta.reshape(nb))
-        dx = self._ascend(xb.reshape(self.plan.n_bottom, B), f.c_invs, f.Ws, etas)
-        return dx * f.s_vert
+        xb = _bottom_solve(f.L_bottom, f.scale, eta.reshape(nb, k))
+        dx = self._ascend(xb.reshape(self.plan.n_bottom, B, k), f.c_invs, f.Ws, etas)
+        dx = dx * f.s_vert[:, :, None]
+        return dx if cols else dx[:, :, 0]
 
     def solve(self, blocks, eta):
         """Factor + solve: blocks [K, B*B] planar (caller's pair order),
@@ -466,6 +485,68 @@ class BlockCholeskySolver:
         levels after the blocks instead of beside them, so no separate
         one-pass routine is kept."""
         return self.solve_with_factor(self.factor(blocks), eta)
+
+    # -- recurrent sparse marginals ---------------------------------------
+
+    def marginals(self, f: BlockCholeskyFactor):
+        """Sigma = lambda^-1 on the level-0 pattern, in PLAN order, from a
+        factor: the JAX module's Takahashi-style backward recurrence over
+        the levels (reference: the ICRA-2015 recurrent formula,
+        include/slam/Marginals.h:1694,2694), never a dense n x n matrix:
+
+          Sigma_bot   = dense inverse of the bottom factor
+          Sigma_ER[u] = -sum_i W_i^T Sigma_{rho_i, rho_u}   (fill-pair plan)
+          Sigma_EE[e] = C_e^-1 - sum_u Sigma_ER[u] W_u
+          Sigma_RR    = carry copy from the level below
+
+        Every Sigma_{rho_i, rho_j} it needs lies on the next level's
+        pattern (fill closure).  The bottom's equilibration and the level-0
+        Jacobi scaling are undone on the way."""
+        B = self.B
+        BB = B * B
+        nb = self.plan.n_bottom * B
+        L = f.L_bottom
+        dt, dev = L.dtype, L.device
+        Linv = torch.linalg.solve_triangular(
+            L, torch.eye(nb, dtype=dt, device=dev), upper=False)
+        # undo the bottom equilibration: Sigma = S (S A S)^-1 S
+        sig_dense = (Linv.mT @ Linv) * f.scale[:, None] * f.scale[None, :]
+        Sig = sig_dense.reshape(-1)[self._bottom_idx].reshape(-1, BB)
+        for li in range(len(self._levels) - 1, -1, -1):
+            lv = self._levels[li]
+            W = f.Ws[li]
+            Ku = lv.u_src.shape[0]
+            Sig_ER = torch.zeros((Ku, BB), dtype=dt, device=dev)
+            if lv.has_fill:
+                G = Sig[lv.p_dst]                        # stored blocks
+                Gt = planar.btranspose(G, B, B)
+                flip = lv.p_flip[:, None]
+                S_ab = torch.where(flip, Gt, G)          # Sigma_{rho_a, rho_b}
+                S_ba = torch.where(flip, G, Gt)
+                term_b = planar.bmm_At_B(W[lv.pa], S_ab, B, B, B)
+                term_a = planar.bmm_At_B(W[lv.pb], S_ba, B, B, B)
+                term_a = term_a * (lv.pa != lv.pb).to(dt)[:, None]
+                Sig_ER.index_add_(0, lv.pb, term_b, alpha=-1)
+                Sig_ER.index_add_(0, lv.pa, term_a, alpha=-1)
+            # Sigma_EE = C^-1 - sum_u Sigma_ER[u] W_u
+            Sig_EE = f.c_invs[li].index_add(0, lv.u_elim, planar.bmm(Sig_ER, W, B, B, B),
+                                            alpha=-1)
+            Sig_k = torch.zeros((lv.K, BB), dtype=dt, device=dev)
+            Sig_k[lv.carry_src] = Sig[lv.carry_dst]
+            Sig_k[lv.elim_diag_idx] = Sig_EE
+            # a pair stored as (e, rho) holds Sigma_ER, one stored (rho, e)
+            # its transpose
+            Sig_k[lv.u_src] = torch.where(lv.u_flip[:, None], Sig_ER,
+                                          planar.btranspose(Sig_ER, B, B))
+            Sig = Sig_k
+        # undo the level-0 Jacobi scaling: Sigma = S Sigma' S
+        sr, sc = f.s_vert[self._rows0], f.s_vert[self._cols0]
+        return Sig * (sr[:, :, None] * sc[:, None, :]).reshape(-1, BB)
+
+    def marginals_from_stores(self, stores, inc):
+        """Marginals from the incremental engine's maintained flat stores
+        (inc: the IncrementalCholesky that owns their layout)."""
+        return self.marginals(inc.to_factor(stores))
 
     @property
     def n_levels(self) -> int:

@@ -753,7 +753,9 @@ class IncrementalCholesky:
             stores["L"], stores["s"], stores["sv"])
 
     def _solve(self, stores, eta0):
-        """Solve lambda dx = eta0 with the current flat factor stores."""
+        """Solve lambda dx = eta0 with the current flat factor stores; eta0
+        [N, B], or k right-hand sides [N, B, k] in one descent and ascent
+        (the Woodbury columns of FastL's in-loop marginals)."""
         return self.chol.solve_with_factor(self.to_factor(stores), eta0)
 
     def _spmv0(self, stores, x):

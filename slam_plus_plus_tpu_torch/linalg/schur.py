@@ -79,10 +79,11 @@ def route_sparse_reduced(Np: int, Bp: int, Nl: int, Bl: int, Kpl: int,
             (n_reduced > sparse_reduced_limit or (panel_gb > 2.0 and density < 0.05)))
 
 
-def _pick_chunk(Nl: int, np_bp: int, Bl: int) -> int:
+def _pick_chunk(Nl: int, np_bp: int, Bl: int, itemsize: int) -> int:
     """Landmark-chunk size keeping the two dense panels under
-    CHUNK_PANEL_BYTES (the JAX package's rule)."""
-    per_lm = np_bp * Bl * 4 * 2  # U and W panels, f32
+    CHUNK_PANEL_BYTES (the JAX package's rule, which counts 4 bytes per
+    element; here the dtype's own)."""
+    per_lm = np_bp * Bl * itemsize * 2  # U and W panels
     c = max(256, CHUNK_PANEL_BYTES // max(per_lm, 1))
     c = int(min(Nl, c))
     return ((c + 255) // 256) * 256 if c >= 256 else c
@@ -130,7 +131,7 @@ class SchurSolver:
         [nred, chunk*Bl] panel."""
         asm = self.asm
         Bp, Nl, Bl = asm.Bp, asm.Nl, asm.Bl
-        self.chunk = _pick_chunk(Nl, self.n_reduced, Bl)
+        self.chunk = _pick_chunk(Nl, self.n_reduced, Bl, asm.dtype.itemsize)
         n_chunks = -(-Nl // self.chunk)
         order = np.argsort(asm.pl_cols, kind="stable")
         cols = asm.pl_cols[order]
@@ -173,11 +174,27 @@ class SchurSolver:
         dx_l = planar.bmv(c_inv, system.eta_l - ut_dx, asm.Bl, asm.Bl)
         return dx_flat.reshape(asm.Np, asm.Bp), dx_l
 
-    def _solve_flat(self, system):
-        """(dx_p, dx_l) through the flat branch."""
+    def _flat_chunks(self):
+        """(chunk index, lo, hi) of each non-empty chunk of the flat branch:
+        its landmarks are chunk index x chunk onwards, its blocks lo:hi of
+        the landmark-sorted order."""
+        return [(ci, lo, hi) for ci, (lo, hi) in
+                enumerate(zip(self._starts[:-1], self._starts[1:])) if hi > lo]
+
+    def _flat_panel(self, blocks_sorted, lo, hi):
+        """The [nred, chunk*Bl] dense panel of landmark-sorted pl-shaped
+        blocks lo:hi."""
+        Bl, C = self.asm.Bl, self.chunk
+        panel = torch.zeros(self.n_reduced * C * Bl, dtype=blocks_sorted.dtype,
+                            device=blocks_sorted.device)
+        panel.index_add_(0, self._panel_idx[lo:hi].reshape(-1), blocks_sorted[lo:hi].reshape(-1))
+        return panel.reshape(self.n_reduced, C * Bl)
+
+    def _flat_reduce(self, system):
+        """(c_inv, u, w, SC, rhs_p) of the flat branch: W = H_pl C^-1 per
+        block, SC summed over the landmark chunks' dense panels."""
         asm = self.asm
-        Np, Bp, Nl, Bl, C = asm.Np, asm.Bp, asm.Nl, asm.Bl, self.chunk
-        nred = self.n_reduced
+        Bp, Bl = asm.Bp, asm.Bl
         rows, cols = self._pl_rows, self._pl_cols
         c_inv = planar.binv(system.ll_blocks, Bl)
         u = system.pl_blocks[:asm.Kpl]
@@ -186,16 +203,17 @@ class SchurSolver:
                                      alpha=-1)
         sc = self._dense_pp(system.pp_blocks)
         u_sorted, w_sorted = u[self._order], w[self._order]
-        for lo, hi in zip(self._starts[:-1], self._starts[1:]):
-            if hi == lo:
-                continue
-            idx = self._panel_idx[lo:hi].reshape(-1)
-            panels = []
-            for blocks in (w_sorted[lo:hi], u_sorted[lo:hi]):
-                panel = torch.zeros(nred * C * Bl, dtype=u.dtype, device=u.device)
-                panels.append(panel.index_add_(0, idx, blocks.reshape(-1)).reshape(nred, C * Bl))
-            sc = sc - panels[0] @ panels[1].T
-        dx_p = cholesky_solve(sc, rhs.reshape(nred)).reshape(Np, Bp)
+        for _ci, lo, hi in self._flat_chunks():
+            sc = sc - self._flat_panel(w_sorted, lo, hi) @ self._flat_panel(u_sorted, lo, hi).T
+        return c_inv, u, w, sc, rhs
+
+    def _solve_flat(self, system):
+        """(dx_p, dx_l) through the flat branch."""
+        asm = self.asm
+        Np, Bp, Bl = asm.Np, asm.Bp, asm.Bl
+        c_inv, u, _w, sc, rhs = self._flat_reduce(system)
+        dx_p = cholesky_solve(sc, rhs.reshape(self.n_reduced)).reshape(Np, Bp)
+        rows, cols = self._pl_rows, self._pl_cols
         ut_dx = planar.bmv_At(u, dx_p[rows], Bp, Bl)
         dx_l = planar.bmv(c_inv, system.eta_l.index_add(0, cols, ut_dx, alpha=-1), Bl, Bl)
         return dx_p, dx_l

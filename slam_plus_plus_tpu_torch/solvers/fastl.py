@@ -23,10 +23,20 @@ lambda, and then either ``refresh="dirty"`` (the default) recomputes only
 the reachable factor blocks (linalg/incremental_cholesky.py) or
 ``refresh="full"`` redescends every level.
 
-Host syncs: one read of |dx| per iteration (and, in float32, the bottom
-factor's ridge-ladder status per factorization).  The whole replay's
-reachability walks are done at construction (the solve schedule is
-host-static); everything a solve point uploads goes in one copy.
+With ``marginals=True`` the per-vertex covariance diagonal is maintained
+inside the loop at every solve point (the JAX package's in-loop marginals
+under its default MarginalsPolicy; reference
+NonlinearSolver_Lambda.h:670-705, Marginals.h:5224): after a push the
+recurrent recovery from the maintained factor, at a solve point without
+one the Woodbury update through it; ``marginals_trace`` logs each
+decision.
+
+The engine runs float64 on both devices (config.incremental_dtype);
+``dtype=torch.float32`` takes the JAX package's float32 engine with its
+aids.  Host syncs: one read of |dx| per iteration (and, in float32, the
+bottom factor's ridge-ladder status per factorization).  The whole
+replay's reachability walks are done at construction (the solve schedule
+is host-static); everything a solve point uploads goes in one copy.
 """
 
 from __future__ import annotations
@@ -38,11 +48,12 @@ import numpy as np
 import torch
 
 from slam_plus_plus_tpu_torch.assembly.assembler import Assembler
-from slam_plus_plus_tpu_torch.config import SolverSettings, pin_precision
+from slam_plus_plus_tpu_torch.config import SolverSettings, incremental_dtype, pin_precision
 from slam_plus_plus_tpu_torch.graph.system import GraphSystem
 from slam_plus_plus_tpu_torch.linalg.block_cholesky import BlockCholeskySolver
 from slam_plus_plus_tpu_torch.linalg.incremental_cholesky import IncrementalCholesky
-from slam_plus_plus_tpu_torch.models.types import EDGE_TYPES
+from slam_plus_plus_tpu_torch.marginals.covariance import IncrementalMarginals
+from slam_plus_plus_tpu_torch.models.types import EDGE_TYPES, VERTEX_TYPES
 
 #: edges of one type per omega batch; larger pending batches are chunked
 OMEGA_EDGE_CAP = 16
@@ -54,6 +65,8 @@ BOTTOM = 32
 #: many solves (the JAX package's cure for drift of thousands of float32
 #: scatter-adds between pushes; float64 never does)
 F32_REASSEMBLE_EVERY = 256
+#: Woodbury columns past which the in-loop marginals recompute instead
+SIGMA_UPDATE_MAX_COLS = 96
 
 
 def replay_steps(system: GraphSystem) -> List[dict]:
@@ -91,16 +104,21 @@ class FastLSolver:
 
     def __init__(self, system: GraphSystem, *, device, every_n: int = 1,
                  max_iterations: int = 10, dx_threshold: float = 20.0,
-                 refresh: str = "dirty", onetime_dx: bool = True):
+                 refresh: str = "dirty", onetime_dx: bool = True,
+                 marginals: bool = False, dtype=None):
         """onetime_dx=False gives the reference LAMBDA solver's incremental
         report: chi2 and the solution at the last pushed linearization, no
         trailing one-time dx (its Optimize discards a below-threshold dx,
         reference NonlinearSolver_Lambda.h:637-661).  Between pushes the
         linearization is frozen, so lambda maintained by omega updates
         equals the lambda solver's full Refresh_Lambda: one engine serves
-        both solvers."""
+        both solvers.  marginals: maintain the covariance diagonal in the
+        loop, from the maintained stores of refresh="dirty".  dtype: None takes
+        ``incremental_dtype(device)``."""
         if refresh not in ("dirty", "full"):
             raise ValueError(f"refresh {refresh!r}: dirty or full")
+        if marginals and refresh != "dirty":
+            raise ValueError("in-loop marginals need refresh='dirty'")
         if not system.edge_stores:
             raise ValueError("cannot replay an empty system (no edges)")
         t0 = time.perf_counter()
@@ -111,11 +129,15 @@ class FastLSolver:
         self.dx_threshold = dx_threshold
         self.refresh = refresh
         self.onetime_dx = onetime_dx
+        self.marginals = marginals
+        self.marginals_trace: List[str] = []
+        self._sigma_diag = None
+        self._sigma_pending: List[tuple] = []
         # one mixed class: landmarks are low-degree candidates the MIS
         # elimination takes in its first levels, the reference FastL's
         # uniform treatment of landmark blocks in R
         self.asm = asm = Assembler(system, device=device, settings=SolverSettings(
-            schur_split="off", edge_layout="flat"))
+            schur_split="off", edge_layout="flat"), dtype=dtype or incremental_dtype(device))
         assert asm.Nl == 0, "the mixed-class assembler split a class off"
         self.chol = BlockCholeskySolver(asm.pp_rows, asm.pp_cols, asm.Np, asm.Bp,
                                         device=asm.device, bottom=min(asm.Np, BOTTOM))
@@ -348,6 +370,89 @@ class FastLSolver:
         return self.inc.solve_with_norm(stores, eta0)
 
     # ------------------------------------------------------------------
+    # marginals maintained inside the loop
+    # ------------------------------------------------------------------
+
+    def _sigma_recompute(self, stores):
+        """The recurrent recovery from the maintained factor: the block
+        diagonal of Sigma, per class slot."""
+        Sig = self.chol.marginals_from_stores(stores, self.inc)
+        self._sigma_diag = Sig[self.chol._diag_pos0]
+        self.marginals_trace.append("recalculate")
+
+    def _build_G(self, pend, states):
+        """(G [Np*Bp, k], D [k]): the pending edges' square-root omega
+        columns (sign +1) and, for each vertex they activated, the removal
+        of its unit placeholder pivot (one unit column per tangent dim,
+        sign -1); None past SIGMA_UPDATE_MAX_COLS columns, counted on the
+        host before anything is built."""
+        asm = self.asm
+        Bp = asm.Bp
+        by_type: Dict[str, list] = {}
+        act_rows = []
+        for (en, el, nm) in pend:
+            by_type.setdefault(en, []).append(el)
+            plan = asm.plan_of[en]
+            for slot in np.flatnonzero(nm):
+                cs = int(plan.slot_cslot[slot][el])
+                d = min(Bp, VERTEX_TYPES[EDGE_TYPES[en].vertex_types[slot]].tangent_dim)
+                act_rows.extend(cs * Bp + dd for dd in range(d))
+        n_omega = sum(EDGE_TYPES[en].residual_dim * len(els) for en, els in by_type.items())
+        if n_omega + len(act_rows) > SIGMA_UPDATE_MAX_COLS:
+            return None
+        cols = [IncrementalMarginals.omega_sqrt_for_edges(asm, states, en, els)
+                for en, els in by_type.items()]
+        if act_rows:
+            A = torch.zeros((asm.Np * Bp, len(act_rows)), dtype=asm.dtype, device=asm.device)
+            A[torch.as_tensor(act_rows, device=asm.device),
+              torch.arange(len(act_rows), device=asm.device)] = 1.0
+            cols.append(A)
+        return (torch.cat(cols, dim=1),
+                torch.tensor([1.0] * n_omega + [-1.0] * len(act_rows), dtype=asm.dtype,
+                             device=asm.device))
+
+    def _sigma_update(self, stores, G, D):
+        """The Woodbury update of the diagonal through the current factor,
+        which already holds omega, so it solves X' = Sigma' G (all k columns
+        in one descent and ascent):
+
+            Sigma'_diag = Sigma_diag - diag(X' (D - G^T X')^-1 X'^T)
+
+        (Update_BlockDiagonalMarginals_FBS_ExOmega's Woodbury with the stale
+        and fresh factors exchanged; the signs D = +/-1 take the activation
+        downdates exactly)."""
+        asm = self.asm
+        Np, Bp, k = asm.Np, asm.Bp, G.shape[1]
+        X = self.inc._solve(stores, G.reshape(Np, Bp, k)).reshape(G.shape)
+        M = torch.linalg.inv(torch.diag(D) - G.mT @ X)
+        Xb = X.reshape(Np, Bp, k)
+        self._sigma_diag = self._sigma_diag - ((Xb @ M) @ Xb.mT).reshape(Np, Bp * Bp)
+        self.marginals_trace.append("update")
+
+    def _refresh_marginals(self, stores, states, pushed):
+        """The decision at a solve point: recompute after a push, else the
+        update of the edges added since the last solve point, or a
+        recompute past SIGMA_UPDATE_MAX_COLS columns."""
+        if not self.marginals:
+            return
+        if pushed or self._sigma_diag is None:
+            self._sigma_recompute(stores)
+        elif self._sigma_pending:
+            GD = self._build_G(self._sigma_pending, states)
+            if GD is None:
+                self._sigma_recompute(stores)
+            else:
+                self._sigma_update(stores, *GD)
+        self._sigma_pending.clear()
+
+    def sigma_diag(self):
+        """The maintained per-vertex covariance blocks [Np, Bp, Bp] on the
+        solver's device (None without ``marginals``)."""
+        if self._sigma_diag is None:
+            return None
+        return self._sigma_diag.reshape(self.asm.Np, self.asm.Bp, self.asm.Bp)
+
+    # ------------------------------------------------------------------
 
     def run(self, verbose: bool = False):
         """Replay every edge with FastL semantics; returns (chi2, iterations).
@@ -399,6 +504,8 @@ class FastLSolver:
             # between solves is never read and omega deltas are additive, so
             # all pending edges go in here at once
             fused_dx = None
+            if pending and self.marginals:
+                self._sigma_pending.extend(pending)
             if reassemble_every and solves_since_rebuild >= reassemble_every:
                 # float32 drift cleanup: the pending edges are already in
                 # counts, so the rebuild absorbs them
@@ -436,6 +543,7 @@ class FastLSolver:
                     nxt = self._next_solve.get(si)
                     if nxt is not None and nxt not in prepared:
                         prepared[nxt] = self.inc.prepare_host(self._sched[nxt])
+            pushed = False
             for it in range(self.max_iterations):
                 total_iters += 1
                 if it == 0 and fused_dx is not None:
@@ -452,10 +560,12 @@ class FastLSolver:
                 # push: the linearization moves -> relinearize + refactor
                 states = asm.update(states, dx, None)
                 n_pushes += 1
+                pushed = True
                 lin_dirty = False
                 stores, eta0 = self._init_stores(states, dict(counts), step["n_active"])
                 n_full += 1
                 solves_since_rebuild = 0
+            self._refresh_marginals(stores, states, pushed)
             n_solves += 1
             solves_since_rebuild += 1
 

@@ -119,9 +119,10 @@ def sparse_solve(chol: BlockCholeskySolver, spmv: LambdaSpmv, bs, pcg_iters: int
 
 class GaussNewtonSolver:
     def __init__(self, system: GraphSystem, *, device,
-                 settings: Optional[SolverSettings] = None):
+                 settings: Optional[SolverSettings] = None, dtype=None):
+        """dtype: the assembler's (None: ``default_dtype(device)``)."""
         t0 = time.perf_counter()
-        self._setup(system, device, settings)
+        self._setup(system, device, settings, dtype)
         asm = self.asm
         ls = self.settings.linear_solver
         use_schur = asm.Nl > 0 and asm.Kpl > 0 and ls != "scipy"
@@ -146,7 +147,8 @@ class GaussNewtonSolver:
         self.pcg_taken = []      # PCG iterations of each sparse solve (device scalars)
         self.timing["construct"] = time.perf_counter() - t0
 
-    def _setup(self, system: GraphSystem, device, settings: Optional[SolverSettings]):
+    def _setup(self, system: GraphSystem, device, settings: Optional[SolverSettings],
+               dtype=None):
         """What every solver of the GN family shares: the system, its
         settings and the assembler over it."""
         if not system.edge_stores:
@@ -155,7 +157,7 @@ class GaussNewtonSolver:
         pin_precision()
         self.system = system
         self.settings = settings or SolverSettings()
-        self.asm = Assembler(system, device=device, settings=self.settings)
+        self.asm = Assembler(system, device=device, settings=self.settings, dtype=dtype)
         self.timing = {}
 
     def _solve(self, bs):

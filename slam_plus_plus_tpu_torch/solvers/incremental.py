@@ -25,6 +25,7 @@ take this module's own path: each iteration assembles the active prefix
 and solves it by the Schur complement (a split landmark class), the dense
 direct factor (<= DENSE_LIMIT scalar dims), the MIS-Schur block Cholesky,
 or the host oracle, retrying a non-finite step with escalating damping.
+Both run float64 on both devices (config.incremental_dtype).
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ import numpy as np
 import torch
 
 from slam_plus_plus_tpu_torch.assembly.assembler import Assembler
-from slam_plus_plus_tpu_torch.config import SolverSettings, pin_precision
+from slam_plus_plus_tpu_torch.config import SolverSettings, incremental_dtype, pin_precision
 from slam_plus_plus_tpu_torch.graph.system import GraphSystem
 from slam_plus_plus_tpu_torch.linalg.block_cholesky import BlockCholeskySolver
 from slam_plus_plus_tpu_torch.linalg.dense import solve_dense_spd
@@ -85,17 +86,18 @@ class IncrementalSolver:
         self.max_iterations = max_iterations
         self.dx_threshold = dx_threshold
 
+        dtype = incremental_dtype(device)
         self._delegate = None
         if every_n and takes_fastl(system, self.settings):
             self._delegate = FastLSolver(
                 system, device=device, every_n=every_n, max_iterations=max_iterations,
-                dx_threshold=dx_threshold, onetime_dx=False)
+                dx_threshold=dx_threshold, onetime_dx=False, dtype=dtype)
             self.asm = self._delegate.asm
             self.steps = self._delegate.steps
             self.timing = self._delegate.timing
             return
         self.asm = asm = Assembler(system, device=device, settings=dataclasses.replace(
-            self.settings, edge_layout="flat"))
+            self.settings, edge_layout="flat"), dtype=dtype)
         ls = self.settings.linear_solver
         use_schur = asm.Nl > 0 and asm.Kpl > 0 and ls != "scipy"
         self._schur = SchurSolver(asm) if use_schur else None

@@ -206,13 +206,11 @@ def test_gn_block_cholesky_branch_matches(files):
 
 
 @pytest.mark.parametrize("solver", ["gn", "lm"])
-def test_f32_solvers_follow_the_jax_package(files, monkeypatch, solver):
+def test_f32_solvers_follow_the_jax_package(files, solver):
     """float32 GN and LM on the block Cholesky with its PCG (the card's
-    configuration, reached on the CPU by float32 blocks) against the JAX
-    package's float32 run: the same iteration count and final chi2 to 1e-4
-    relative, and for LM every trial's chi2 to 1e-4."""
-    import slam_plus_plus_tpu_torch.assembly.assembler as tasm
-    monkeypatch.setattr(tasm, "default_dtype", lambda device: torch.float32)
+    configuration, reached on the CPU by ``dtype=torch.float32``) against
+    the JAX package's float32 run: the same iteration count and final chi2
+    to 1e-4 relative, and for LM every trial's chi2 to 1e-4."""
     path = files["manhattan200"]
     jcls, tcls = (JGN, TGN) if solver == "gn" else (JLM, TLM)
     jrun = jcls(jparse(path), SolverConfig(dtype=jnp.float32, linear_solver="block_cholesky"))
@@ -226,7 +224,7 @@ def test_f32_solvers_follow_the_jax_package(files, monkeypatch, solver):
     jrun.asm.assemble = spy
     jchi2, jit = jrun.optimize(5)
     trun = tcls(tparse(path), device="cpu",
-                settings=SolverSettings(linear_solver="block_cholesky"))
+                settings=SolverSettings(linear_solver="block_cholesky"), dtype=torch.float32)
     assert trun.asm.dtype == torch.float32 and trun.pcg_iterations > 0
     chi2, iters = trun.optimize(5)
     assert iters == jit and abs(chi2 - jchi2) <= 1e-4 * jchi2

@@ -58,9 +58,7 @@ def runs(tmp_path_factory):
     D.write_g2o_rocv(path, *D.make_rocv_scene(n_steps=1000, seed=33))
     t64 = TGN(tparse(path), device="cpu", settings=MIXED)
     chi2_64, _ = t64.optimize(ITERATIONS)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tasm, "default_dtype", lambda device: torch.float32)
-        t32 = TGN(tparse(path), device="cpu", settings=MIXED)
+    t32 = TGN(tparse(path), device="cpu", settings=MIXED, dtype=torch.float32)
     j32 = JGN(jparse(path), SolverConfig(dtype=jnp.float32, schur_split="off"))
     assert t32.asm.dtype == torch.float32 and t32._sparse_chol is not None
     assert j32._sparse_chol is not None and t32.asm.Nl == 0

@@ -135,10 +135,11 @@ def test_cli_without_card_fails(ba_file, capsys):
 
 #: every module of the port, all imported by the walk below
 PORT_MODULES = (
-    "app.main", "assembly.assembler", "config", "evaluation.error_eval",
+    "app.dataassoc_example", "app.main", "assembly.assembler", "config",
+    "evaluation.distances", "evaluation.error_eval",
     "graph.system", "io.acceptance", "io.datasets", "io.parser", "linalg.block_cholesky",
     "linalg.bsr", "linalg.dense", "linalg.host_solver", "linalg.incremental_cholesky",
-    "linalg.schur", "linalg.spmv",
+    "linalg.schur", "linalg.spmv", "marginals.covariance",
     "manifolds.camera", "manifolds.se2", "manifolds.se3", "manifolds.sim3", "manifolds.so3",
     "models.ba_types", "models.rocv_types", "models.se2_types", "models.se3_types",
     "models.sim3_types", "models.types", "ops.p2c", "ops.panel", "ops.planar", "robust.losses",
