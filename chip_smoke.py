@@ -117,7 +117,31 @@ it never falls back to the CPU.  Phases, each of which must pass:
      the ms per solve point with and without marginals; (e) the
      data-association app on its 120-pose sphere: the same decisions on the
      card as on the CPU; the kernels' launches during the phase join their
-     JSON entries.  Phase 10's, phase 11's and the whole smoke's wall times
+     JSON entries;
+ 12. incremental BA, the online FastL and -dsi (no Pallas kernel lies on
+     this path), float64: (a) the JAX test's 12-camera / 300-point marker
+     file replayed by the incremental dogleg (solvers/dogleg_incremental.py)
+     on the card and on the CPU port, per-marker chi2 within 1e-9 relative,
+     the card's maintained lambda pieces and SC within 1e-7 x scale of a
+     fresh assembly; (b) the bench scene written as 50 markers of 2
+     cameras (app/incremental_ba.py) and replayed on the card: the final
+     chi2 <= 1.05 x the batch dogleg's (optimize(20, 1e-3), float64, flat
+     layout), the maintained state against a fresh assembly, fewer
+     refreshed edges than a full relinearization every iteration, ms per
+     marker and per DL iteration, a profile of the last 3 markers (idle
+     share), peak memory, and the maintained-state marginals against
+     Marginals on the fresh assembly at MARG_BA_TOL x scale (gauge damping
+     1e-6); (c) the online FastL (solvers/fastl_online.py): a 200-pose
+     manhattan with no growth against the card's replay FastL (1e-6) and
+     the CPU port's stream (1e-8 relative), and the intel-scale file
+     streamed edge by edge from a capacity of 128 with a fringe of 64,
+     within the JAX test's rebuild bound and chi2 <= 1.3 x phase 10's
+     replay + 10, with rebuilds, closures, solve points, pushes, rebuild
+     seconds, ms per edge and per solve point; (d) -dsi on a small
+     manhattan with -nsp 1 through the CLI's code path: as many dumps on
+     the card as on the CPU, the card's last equal to its -dx file and
+     within 1e-8 x scale of the CPU's; K1 and K2 launched 0 times.
+     Phase 10's, phase 11's, phase 12's and the whole smoke's wall times
      are printed.
 
 The last two lines are a JSON object describing each kernel and the result
@@ -224,6 +248,12 @@ def main() -> int:
     marginals_phase(torch, dev, card, (k1, k2), venice_system, phase10)
     del venice_system
     print(f"phase 11 (marginal covariances, float64): {time.perf_counter() - t0:.1f} s wall")
+
+    # ---- 12. incremental BA and online FastL ---------------------------------
+    t0 = time.perf_counter()
+    incremental_ba_phase(torch, dev, card, phase10["intel-scale -nsp 1 -fL"][0])
+    print(f"phase 12 (incremental BA, online FastL, -dsi; float64): "
+          f"{time.perf_counter() - t0:.1f} s wall")
     print(f"the whole smoke: {time.perf_counter() - T_START:.1f} s wall")
 
     print(f"card: {card}")
@@ -1981,6 +2011,332 @@ def marginals_phase(torch, dev, card, kernels, venice_system, phase10):
         k["launches_marginals"] = n
     print(f"launches during phase 11: p2c_edge_terms {launches[0]}, build_panels {launches[1]}")
 
+
+
+# ---- phase 12: incremental BA and online FastL -------------------------------
+
+#: (a) the JAX test's incremental BA scene (tests/test_dogleg_incremental.py:21-29)
+IBA_SMALL, IBA_SMALL_CHUNK = dict(n_cams=12, n_points=300, seed=5), 3
+#: (b) the bench scene as a replay, two cameras per marker: 50 markers
+IBA_CHUNK = 2
+#: (a) per-marker chi2, card against CPU, relative: float64 on both reads
+#: 6.3-6.6e-10 on the card (atomic index_add_, its order not fixed) and the
+#: CPU port against the JAX package 1.8e-9 on the CPU, while the control,
+#: the card's engine run in float32, reads ~1e2; (a, b) the maintained
+#: lambda pieces and SC against a fresh assembly at the same states, x scale
+#: (the JAX test's bound: the deltas are differences of large contributions)
+IBA_CHI2_TOL, IBA_STATE_TOL = 1e-8, 1e-7
+#: (b) the replay's final chi2 against the batch dogleg's on the full problem
+#: (optimize(20, 1e-3), float64), the JAX test's bound
+IBA_BATCH_GATE = 1.05
+#: (b) the marginals' gauge damping, x the largest Hessian diagonal: at
+#: 1e-10 both Schur-domain routes cancel the scale gauge's eigenvalue (~1e-4
+#: from the true Sigma, tests/test_torch_marginals.py), at 1e-6 they agree
+IBA_MARG_JITTER = 1e-6
+#: (b) the markers profiled: the last three
+IBA_PROFILE_MARKERS = 3
+#: (c) the JAX test's no-growth stream (tests/test_fastl_online.py:25-42) and
+#: its bounds: chi2 against the card's replay FastL, absolute; against the
+#: CPU port's stream, relative
+ONLINE_SMALL, ONLINE_SMALL_CAP = dict(n_poses=200, seed=3), 256
+ONLINE_REPLAY_TOL, ONLINE_CPU_TOL = 1e-6, 1e-8
+#: (c) the intel-scale stream: initial vertex capacity (the fringe holds
+#: OnlineFastLSolver.FRINGE_CAP = 64 closures)
+ONLINE_ROW, ONLINE_CAP = "intel-scale", 128
+#: (d) -dsi: a small manhattan through the CLI's code path; the card's last
+#: dump against the CPU's, x scale
+DSI_SCENE, DSI_TOL = dict(n_poses=80, seed=12), 1e-8       # 7 loop closures
+
+
+def _iba_file(name, chunk, **scene):
+    """An incremental BA file (app/incremental_ba.py's layout), cached
+    beside the built kernels."""
+    from slam_plus_plus_tpu_torch.app.incremental_ba import write_incremental_ba
+    from slam_plus_plus_tpu_torch.io import datasets as D
+
+    path = os.path.join(_scene_dir(), name)
+    if not os.path.exists(path):
+        write_incremental_ba(path + ".tmp", *D.make_ba_scene(**scene), cams_per_chunk=chunk)
+        os.replace(path + ".tmp", path)
+    return path
+
+
+def _maintained_errors(torch, s):
+    """The maintained lambda pieces and SC of an IncrementalDoglegSolver
+    against a fresh assembly at its states: ({name: max err / scale}, the
+    fresh block system)."""
+    bs = s.asm.assemble_active(s._states, s._counts, s._nap, s._nal)
+    errs = {}
+    for name, ref in (("pp", bs.pp_blocks), ("u", bs.pl_blocks), ("ll", bs.ll_blocks),
+                      ("eta_p", bs.eta_p), ("eta_l", bs.eta_l), ("sc", s._build_sc(bs))):
+        errs[name] = float((s._M[name] - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+    return errs, bs
+
+
+def iba_small_check(torch, dev):
+    """(a): the small scene replayed by the incremental dogleg on the card
+    and on the CPU port, float64: per-marker chi2 and the card's maintained
+    state against a fresh assembly; the control, the card's engine in
+    float32, must read above the chi2 gate."""
+    from slam_plus_plus_tpu_torch.app.incremental_ba import parse_with_markers
+    from slam_plus_plus_tpu_torch.solvers import dogleg_incremental as DI
+
+    path = _iba_file("iba_small.g2o", IBA_SMALL_CHUNK, **IBA_SMALL)
+
+    def replay(d):
+        system, markers = parse_with_markers(path)
+        s = DI.IncrementalDoglegSolver(system, device=d)
+        return s, s.run([m - 1 for m in markers])[1]
+
+    (s, trace), (cpu, ctrace) = replay(dev), replay("cpu")
+    engine_dtype = DI.incremental_dtype
+    DI.incremental_dtype = lambda _d: torch.float32
+    try:
+        s32, trace32 = replay(dev)
+    finally:
+        DI.incremental_dtype = engine_dtype
+    check(s.asm.dtype == torch.float64 and s.asm.device.type == torch.device(dev).type
+          and s32.asm.dtype == torch.float32,
+          "small incremental BA: the card's engine runs float64 (the control float32)")
+    check(len(trace) == len(ctrace) == len(trace32), "small incremental BA: marker counts differ")
+    rel = [abs(a - b) / b for a, b in zip(trace, ctrace)]
+    rel32 = max(abs(a - b) / b if np.isfinite(a) else np.inf for a, b in zip(trace32, ctrace))
+    check(max(rel) <= IBA_CHI2_TOL, f"small incremental BA: per-marker chi2 card {trace} "
+          f"against CPU {ctrace}, relative {rel}")
+    check(not rel32 <= IBA_CHI2_TOL, f"small incremental BA: the float32 control reads "
+          f"{rel32:.2e}, inside the gate {IBA_CHI2_TOL:g}")
+    errs, _bs = _maintained_errors(torch, s)
+    check(max(errs.values()) <= IBA_STATE_TOL,
+          f"small incremental BA: maintained state against a fresh assembly {errs}")
+    print(f"incremental BA (a) small scene ({IBA_SMALL['n_cams']} cameras, "
+          f"{IBA_SMALL['n_points']} points, {len(trace)} markers): per-marker chi2 card "
+          f"against CPU, largest {max(rel):.2e} relative (tol {IBA_CHI2_TOL:g}; the control, "
+          f"the card's engine in float32, {rel32:.2e}); final {trace[-1]:.6f}; iterations "
+          f"{s.stats['iters']} (CPU {cpu.stats['iters']}); the card's maintained state against "
+          f"a fresh assembly: " + ", ".join(f"{k} {e:.1e}" for k, e in errs.items())
+          + f" x scale (tol {IBA_STATE_TOL:g})")
+
+
+def iba_full_row(torch, dev, card):
+    """(b): the bench scene as an incremental replay through the dogleg on
+    the card, float64, the last markers profiled; then its gates (the
+    batch dogleg's chi2, the maintained state, the fluid savings), the
+    maintained-state marginals against Marginals on a fresh assembly, and
+    its times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from slam_plus_plus_tpu_torch.app.incremental_ba import parse_with_markers
+    from slam_plus_plus_tpu_torch.config import SolverSettings
+    from slam_plus_plus_tpu_torch.marginals import Marginals
+    from slam_plus_plus_tpu_torch.solvers.dogleg import DoglegSolver
+    from slam_plus_plus_tpu_torch.solvers.dogleg_incremental import IncrementalDoglegSolver
+
+    t0 = time.perf_counter()
+    path = _iba_file(f"iba_bench_{N_CAMS}_{N_POINTS}_{SCENE_SEED}.g2o", IBA_CHUNK,
+                     n_cams=N_CAMS, n_points=N_POINTS, seed=SCENE_SEED)
+    t_scene = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    system, markers = parse_with_markers(path)
+    t_parse = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    s = IncrementalDoglegSolver(system, device=dev)
+    t_con = time.perf_counter() - t0
+    prof_from = len(markers) - IBA_PROFILE_MARKERS
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    trace, per_marker, prof_s = [], [], 0.0
+    for k, ms in enumerate(m - 1 for m in markers):
+        if k == prof_from:
+            torch.cuda.synchronize()
+            prof.__enter__()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        it0 = s.stats["iters"]
+        s.advance_to(ms)
+        trace.append(s.optimize()[0])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if k >= prof_from:
+            prof_s += dt
+        else:
+            per_marker.append((dt, s.stats["iters"] - it0))
+    prof.__exit__(None, None, None)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    s.asm.writeback_states(system, s._states)
+    final = trace[-1]
+    errs, bs = _maintained_errors(torch, s)
+    check(max(errs.values()) <= IBA_STATE_TOL,
+          f"incremental BA bench replay: maintained state against a fresh assembly {errs}")
+    total = sum(p.E for p in s.asm.plans)
+    st = s.stats
+    check(st["refreshed_edges"] < st["iters"] * total,
+          f"incremental BA bench replay: {st['refreshed_edges']} edges refreshed in "
+          f"{st['iters']} iterations of {total} edges")
+    t0 = time.perf_counter()
+    batch = DoglegSolver(parse_with_markers(path)[0], device=dev,
+                         settings=SolverSettings(edge_layout="flat"), dtype=torch.float64)
+    chi2_b, it_b = batch.optimize(20, 1e-3)
+    t_batch = time.perf_counter() - t0
+    check(np.isfinite(final) and final <= IBA_BATCH_GATE * chi2_b,
+          f"incremental BA bench replay: final chi2 {final} against {IBA_BATCH_GATE} x the "
+          f"batch dogleg's {chi2_b}; per-marker chi2 {trace}")
+    alpha = float(bs.max_hdiag) * IBA_MARG_JITTER
+    ms_maint = _synced_ms(torch, lambda: s.marginals(alpha=alpha))
+    got = s.marginals(alpha=alpha)
+    marg = Marginals(s.asm, gauge_jitter=IBA_MARG_JITTER)
+    ms_batch = _synced_ms(torch, lambda: marg.compute(bs))
+    p_err, l_err = _marg_rel(got, marg.compute(bs), s.asm)
+    check(max(p_err, l_err) <= MARG_BA_TOL, f"incremental BA bench replay: maintained-state "
+          f"marginals against Marginals ({marg.route}) p {p_err:.3e}, l {l_err:.3e} x scale")
+    t_all, it_all = sum(d for d, _ in per_marker), sum(i for _, i in per_marker)
+    print(f"incremental BA (b) the bench scene as a replay ({N_CAMS} cameras, {N_POINTS} "
+          f"points, {total} observations, {len(markers)} markers of {IBA_CHUNK} cameras; "
+          f"float64; scene {t_scene:.1f} s, parse {t_parse:.1f} s, construct {t_con:.1f} s): "
+          f"final chi2 {final:.4f}, {final / chi2_b:.8f} x the batch dogleg's {chi2_b:.4f} "
+          f"(gate {IBA_BATCH_GATE}; optimize(20, 1e-3), float64, flat layout, {it_b} "
+          f"iterations, {t_batch:.1f} s); per-marker chi2 "
+          f"{', '.join(f'{c:.6g}' for c in trace)}; {st['iters']} DL iterations over "
+          f"{st['solves']} markers; {st['refreshed_edges']} edges refreshed "
+          f"({st['refreshed_edges'] / total:.2f} x the whole graph; a full relinearization "
+          f"every iteration: {st['iters']} x), {st['refreshed_lms']} landmarks re-eliminated; "
+          f"markers 1-{prof_from}: {t_all * 1e3 / len(per_marker):.1f} ms per marker, "
+          f"{t_all * 1e3 / max(it_all, 1):.1f} ms per DL iteration; the replay "
+          f"{t_all + prof_s:.1f} s; peak device memory {peak:.3f} GiB; on {card}")
+    print("  at the end: maintained state against a fresh assembly "
+          + ", ".join(f"{k} {e:.1e}" for k, e in errs.items())
+          + f" x scale (tol {IBA_STATE_TOL:g}); maintained-state marginals (gauge damping "
+          f"{IBA_MARG_JITTER:g} x max diag) against Marginals ({marg.route}) on the fresh "
+          f"assembly: p_diag {p_err:.2e}, l_diag {l_err:.2e} x scale (tol {MARG_BA_TOL:g}); "
+          f"{ms_maint:.1f} ms per recovery from the maintained state, {ms_batch:.1f} ms by "
+          f"Marginals")
+    trace_summary(prof, IBA_PROFILE_MARKERS, prof_s * 1e3 / IBA_PROFILE_MARKERS,
+                  f"markers ({prof_from + 1}-{len(markers)}; wall per marker)")
+
+
+def _stream(torch, on, path):
+    """Feed a pose file's edges one by one to an OnlineFastLSolver; returns
+    (chi2, stats, wall seconds)."""
+    from slam_plus_plus_tpu_torch.io.parser import parse_g2o
+
+    system = parse_g2o(path)
+    store = system.edge_stores["edge_pose2d"]
+    t0 = time.perf_counter()
+    for (_en, li) in system._edge_insert_log:
+        vids = store.vertex_ids[li]
+        on.add_edge(int(vids[0]), int(vids[1]), store.measurements[li], store.informations[li])
+    chi2, stats = on.finish()
+    if on.device.type == "cuda":
+        torch.cuda.synchronize()
+    return chi2, stats, time.perf_counter() - t0
+
+
+def online_fastl_check(torch, dev, card, replay_chi2):
+    """(c): the no-growth stream on the card against the card's replay FastL
+    and the CPU port's stream; the intel-scale file streamed edge by edge
+    from a small capacity, against the rebuild bound and replay_chi2 (the
+    row's -nsp 1 -fL replay, phase 10)."""
+    from slam_plus_plus_tpu_torch.io import datasets as D
+    from slam_plus_plus_tpu_torch.io.parser import parse_g2o
+    from slam_plus_plus_tpu_torch.solvers.fastl import FastLSolver
+    from slam_plus_plus_tpu_torch.solvers.fastl_online import OnlineFastLSolver
+
+    path = os.path.join(_scene_dir(), "online_manhattan200.g2o")
+    poses, edges = D.make_manhattan_2d(**ONLINE_SMALL)
+    D.write_g2o_2d(path, edges, poses)
+    on = OnlineFastLSolver(device=dev, initial_capacity=ONLINE_SMALL_CAP)
+    chi2, st, _wall = _stream(torch, on, path)
+    check(on.fs.asm.dtype == torch.float64, "online FastL: the engine runs float64")
+    replay, _it = FastLSolver(parse_g2o(path), device=dev).run()
+    chi2_cpu, st_cpu, _w = _stream(torch, OnlineFastLSolver(
+        device="cpu", initial_capacity=ONLINE_SMALL_CAP), path)
+    check(st["rebuilds"] == 1, f"online FastL, no growth: {st['rebuilds']} rebuilds")
+    check(abs(chi2 - replay) <= ONLINE_REPLAY_TOL,
+          f"online FastL, no growth: chi2 {chi2} against the replay's {replay}")
+    check(abs(chi2 - chi2_cpu) <= ONLINE_CPU_TOL * chi2_cpu,
+          f"online FastL, no growth: chi2 {chi2} against the CPU port's {chi2_cpu}")
+    counts = ("closures", "solves", "pushes")
+    print(f"online FastL (c) manhattan {ONLINE_SMALL['n_poses']} poses from capacity "
+          f"{ONLINE_SMALL_CAP} (no growth): chi2 {chi2:.8f}, the card's replay FastL "
+          f"{replay:.8f} ({abs(chi2 - replay):.1e} apart, tol {ONLINE_REPLAY_TOL:g}), the CPU "
+          f"port's stream {chi2_cpu:.8f} ({abs(chi2 - chi2_cpu) / chi2_cpu:.1e} relative, tol "
+          f"{ONLINE_CPU_TOL:g}); " + ", ".join(f"{k} {st[k]} (CPU {st_cpu[k]})" for k in counts))
+
+    path = pose_dataset(ONLINE_ROW)
+    torch.cuda.reset_peak_memory_stats()
+    on = OnlineFastLSolver(device=dev, initial_capacity=ONLINE_CAP)
+    fringe = on.FRINGE_CAP
+    chi2, st, wall = _stream(torch, on, path)
+    n = on.n_vertices
+    bound = (int(np.ceil(np.log2(n / ONLINE_CAP))) + 1
+             + int(np.ceil(st["closures"] / fringe)) + 1)
+    check(st["rebuilds"] <= bound, f"online FastL {ONLINE_ROW}: {st['rebuilds']} rebuilds "
+          f"over the bound {bound}")
+    check(np.isfinite(chi2) and chi2 <= 1.3 * replay_chi2 + 10.0,
+          f"online FastL {ONLINE_ROW}: chi2 {chi2} against 1.3 x the replay's {replay_chi2} + 10")
+    print(f"online FastL (c) {ONLINE_ROW} streamed edge by edge ({n} poses, {st['steps']} edges; "
+          f"capacity {ONLINE_CAP} -> {on.capacity}, fringe {fringe}): chi2 {chi2:.4f}, "
+          f"the -nsp 1 -fL replay's {replay_chi2:.4f} (ratio {chi2 / replay_chi2:.4f}; gate "
+          f"1.3 x + 10); {st['rebuilds']} rebuilds (bound {bound}) taking "
+          f"{st['rebuild_seconds']:.1f} s, {st['closures']} closures, {st['solves']} solve "
+          f"points, {st['pushes']} pushes; {wall * 1e3 / st['steps']:.2f} ms per edge, "
+          f"{st['solve_seconds'] * 1e3 / max(st['solves'], 1):.2f} ms per solve point; wall "
+          f"{wall:.1f} s; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+          f"GiB; on {card}")
+
+
+def dump_each_step_check(torch, dev):
+    """(d): -dsi on a small manhattan with -nsp 1 through the CLI's code path
+    on the card and on the CPU: the same dumps, the card's last equal to its
+    -dx file and within DSI_TOL of the CPU's last."""
+    import shutil
+
+    from slam_plus_plus_tpu_torch.app import main as cli
+    from slam_plus_plus_tpu_torch.io import datasets as D
+
+    d = _scene_dir()
+    path = os.path.join(d, "dsi_manhattan.g2o")
+    poses, edges = D.make_manhattan_2d(**DSI_SCENE)
+    D.write_g2o_2d(path, edges, poses)
+    runs = {}
+    for device in (dev.type, "cpu"):
+        ddir, sol = os.path.join(d, f"dsi_{device}"), os.path.join(d, f"dsi_{device}.txt")
+        shutil.rmtree(ddir, ignore_errors=True)
+        args = cli.build_argparser().parse_args(
+            ["-i", path, "--device", device, "-s", "-nsp", "1", "-dx", sol, "-dsi", ddir])
+        chi2, iters, solver = cli.run(args)
+        check(solver._delegate is None and iters > 0,
+              f"-dsi on {device}: not the own path, or no iteration ({iters})")
+        names = sorted(os.listdir(ddir))
+        runs[device] = (names, np.loadtxt(os.path.join(ddir, names[-1])), np.loadtxt(sol),
+                        chi2, solver.system.num_edges)
+    (names, last, sol, chi2, n_edges), (cnames, clast, _csol, cchi2, _n) = (
+        runs[dev.type], runs["cpu"])
+    check(names == cnames and len(names) == n_edges,
+          f"-dsi: {len(names)} dumps on the card, {len(cnames)} on the CPU, {n_edges} steps")
+    check(np.array_equal(last, sol), "-dsi: the card's last dump differs from its -dx file")
+    err = float(np.abs(last - clast).max() / max(np.abs(clast).max(), 1.0))
+    check(err <= DSI_TOL, f"-dsi: the card's last dump {err:.3e} x scale from the CPU's")
+    print(f"-dsi (d) manhattan {DSI_SCENE['n_poses']} poses, -nsp 1, through the CLI's code "
+          f"path: {len(names)} dumps on the card and on the CPU (one per step); the card's "
+          f"last dump equals its -dx file and lies {err:.1e} x scale from the CPU's (tol "
+          f"{DSI_TOL:g}); chi2 {chi2:.6f} (CPU {cchi2:.6f})")
+
+
+def incremental_ba_phase(torch, dev, card, intel_fl_chi2):
+    """Phase 12; intel_fl_chi2: phase 10's intel-scale -nsp 1 -fL chi2."""
+    from slam_plus_plus_tpu_torch.ops.p2c import p2c_edge_terms
+    from slam_plus_plus_tpu_torch.ops.panel import build_panels
+
+    p2c_edge_terms.launches = 0
+    build_panels.launches = 0
+    iba_small_check(torch, dev)
+    iba_full_row(torch, dev, card)
+    online_fastl_check(torch, dev, card, intel_fl_chi2)
+    dump_each_step_check(torch, dev)
+    launches = (p2c_edge_terms.launches, build_panels.launches)
+    check(launches == (0, 0), f"phase 12 launched K1/K2 {launches} times")
+    print(f"launches during phase 12: p2c_edge_terms {launches[0]}, build_panels "
+          f"{launches[1]} (no Pallas kernel lies on this path)")
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -4,7 +4,7 @@ slam_plus_plus_tpu/app/main.py, reference src/slam_app/Main.cpp:41).
     python -m slam_plus_plus_tpu_torch.app.main -i file.g2o [-po] [-A | -lm | -dl]
         [-nsp N | -lsp N] [-fL] [-mnsi N] [-nset X]
         [-v] [-s] [-mfnsi N] [-fnset X] [-us] [-nb] [-dx FILE] [-gt FILE]
-        [--rpe-delta N] [-dm] [--device cuda|cpu]
+        [--rpe-delta N] [-dm] [-dsi DIR] [--device cuda|cpu]
 
   -i <file>      input dataset (g2o dialect: mono, intrinsics, stereo and
                  spheron BA; SE(2) and SE(3) pose graphs and landmarks; ROCV)
@@ -32,6 +32,11 @@ slam_plus_plus_tpu/app/main.py, reference src/slam_app/Main.cpp:41).
   -dm            after the solve, the marginal covariances of the solution
                  (marginals/covariance.py, float64 on either device): print
                  the mean pose sigma
+  -dsi <dir>     incremental: write solution_NNNNN.txt into dir after every
+                 step of the replay (reference -iBAsi); the incremental
+                 lambda solver then takes its own path, as the JAX CLI's
+                 dumps turn its fused path off.  With -fL the directory is
+                 made and nothing is dumped, as in the JAX CLI
   -s / -v        silent / verbose
   --device       cuda (default; float32 batch solvers, float64 incremental
                  ones) or cpu (float64).  There is no fallback: cuda without
@@ -48,6 +53,7 @@ returns 1.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -78,6 +84,7 @@ def build_argparser():
     p.add_argument("-gt", "--ground-truth", default=None)
     p.add_argument("--rpe-delta", type=int, default=1)
     p.add_argument("-dm", "--marginals", action="store_true")
+    p.add_argument("-dsi", "--dump-each-step", default=None, metavar="DIR")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     return p
 
@@ -116,15 +123,28 @@ def run(args):
     if not system.edge_stores:
         raise DatasetError("no edges in the dataset")
 
+    dump_dir = args.dump_each_step
+    if dump_dir:
+        os.makedirs(dump_dir, exist_ok=True)
+    n_dumped = [0]
+
+    def dump_step(solver, _si, states):
+        solver.asm.writeback_states(system, states)
+        _dump_solution(system, os.path.join(dump_dir, f"solution_{n_dumped[0]:05d}.txt"))
+        n_dumped[0] += 1
+
     t0 = time.perf_counter()
     kind = args.solver or ("lambda_lm" if is_ba else "lambda")
     if args.nonlinear_solve_period > 0 or args.linear_solve_period > 0:
         # incremental (JAX main.py:163-183): -lsp is one pushed iteration
         every_n = args.nonlinear_solve_period or args.linear_solve_period
-        cls = FastLSolver if kind == "fast_l" else IncrementalSolver
-        solver = cls(system, device=args.device, every_n=every_n,
-                     max_iterations=args.mnsi if args.nonlinear_solve_period else 1,
-                     dx_threshold=args.nset if args.nonlinear_solve_period else 0.0)
+        kw = dict(device=args.device, every_n=every_n,
+                  max_iterations=args.mnsi if args.nonlinear_solve_period else 1,
+                  dx_threshold=args.nset if args.nonlinear_solve_period else 0.0)
+        if kind == "fast_l":
+            solver = FastLSolver(system, **kw)
+        else:
+            solver = IncrementalSolver(system, on_step=dump_step if dump_dir else None, **kw)
         chi2, iters = solver.run(verbose=args.verbose)
     else:
         cls = {"lambda_lm": LevenbergMarquardtSolver, "lambda_dl": DoglegSolver,

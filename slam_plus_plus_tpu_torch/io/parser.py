@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import math
 import sys
-from typing import Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -163,8 +163,12 @@ def peek_dataset(path: str, max_lines: int = 5000) -> Dict[str, bool]:
     return flags
 
 
-def parse_g2o(path: str, use_vertex_init: bool = False) -> GraphSystem:
+def parse_g2o(path: str, on_marker: Optional[Callable] = None,
+              use_vertex_init: bool = False) -> GraphSystem:
     """Parse a dataset into a GraphSystem.
+
+    on_marker(system) runs at each CONSISTENCY_MARKER, with the edges and
+    vertices read so far (app/incremental_ba.py's marker steps).
 
     use_vertex_init=True honours SE(2)/SE(3) VERTEX lines instead of the
     reference CLI's default of initializing those vertices from edges, and
@@ -190,6 +194,8 @@ def parse_g2o(path: str, use_vertex_init: bool = False) -> GraphSystem:
             tok = parts[0].upper()
             try:
                 _dispatch_line(tok, parts[1:], system, stats, is_ba, use_vertex_init)
+                if on_marker and tok == "CONSISTENCY_MARKER":
+                    on_marker(system)
             except (IndexError, ValueError):
                 # reference: "error: line N: line is truncated" + continue
                 # (reference include/slam_app/ParsePrimitives.h:594-597)
@@ -313,7 +319,7 @@ def _dispatch_line(tok, vals, system, stats, is_ba, use_vertex_init):
         _add_edge(system, stats, "edge_rocv_range", (int(vals[0]), int(vals[1])),
                   np.array([float(vals[2])]), np.array([[float(vals[3])]]))
     elif tok == "CONSISTENCY_MARKER":
-        stats.markers += 1  # only the incremental engines act on markers
+        stats.markers += 1  # parse_g2o's on_marker hook acts on it
     elif tok in ("EQUIV", "PHASE"):
         pass  # bookkeeping tokens, ignored like the reference's CIgnore list
     else:

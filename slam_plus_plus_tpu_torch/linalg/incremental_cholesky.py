@@ -719,16 +719,16 @@ class IncrementalCholesky:
         return (flat[:n], flat[n:n + nb].view(buf.shape),
                 flat[n + nb:n + nb + self.cap_d], flat[n + nb + self.cap_d:])
 
-    def step(self, stores, eta0, dirty_pos: List[np.ndarray], dirty_vals,
-             host_packed=_NOT_PREPARED):
-        """Dirty refactorization + refined solve; returns (stores, dx, |dx|)
-        or None on capacity overflow (the caller takes the full
-        redescent).  stores['H'] must already hold the omega deltas at
+    def refactor_dirty(self, stores, dirty_pos: List[np.ndarray], dirty_vals,
+                       host_packed=_NOT_PREPARED) -> bool:
+        """The dirty refactorization without the solve, in place; False on
+        capacity overflow, with the stores untouched (the caller takes the
+        full redescent).  stores['H'] must already hold the omega deltas at
         level 0.  host_packed: a precomputed prepare_host result."""
         if host_packed is IncrementalCholesky._NOT_PREPARED:
             host_packed = self.prepare_host(dirty_pos)
         if host_packed is None:
-            return None
+            return False
         omega_vals = torch.cat(dirty_vals) if len(dirty_vals) > 1 else dirty_vals[0]
         npad = OMEGA_CAP - omega_vals.shape[0]
         if npad:
@@ -736,6 +736,14 @@ class IncrementalCholesky:
         seg, buf, bot_sel, bot_h = self.upload(host_packed, OMEGA_CAP)
         self._dirty_scan(stores, omega_vals, seg, buf, bot_sel, bot_h)
         stores["H0"] = stores["H"]
+        return True
+
+    def step(self, stores, eta0, dirty_pos: List[np.ndarray], dirty_vals,
+             host_packed=_NOT_PREPARED):
+        """refactor_dirty + the refined solve; returns (stores, dx, |dx|) or
+        None on capacity overflow."""
+        if not self.refactor_dirty(stores, dirty_pos, dirty_vals, host_packed):
+            return None
         dx, norm = self.solve_with_norm(stores, eta0)
         return stores, dx, norm
 

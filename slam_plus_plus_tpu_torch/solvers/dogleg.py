@@ -50,8 +50,8 @@ def _dot(ap, al, bp, bl) -> float:
 
 class DoglegSolver(GaussNewtonSolver):
     def __init__(self, system: GraphSystem, *, device,
-                 settings: Optional[SolverSettings] = None):
-        super().__init__(system, device=device, settings=settings)
+                 settings: Optional[SolverSettings] = None, dtype=None):
+        super().__init__(system, device=device, settings=settings, dtype=dtype)
         self._lambda_mv = LambdaSpmv(self.asm)
 
     def _gn_step(self, bs):

@@ -20,8 +20,10 @@ Graphs whose blocks are all <= 6 wide (pose graphs and landmark SLAM)
 delegate to the maintained-factor engine, ``FastLSolver(...,
 onetime_dx=False)``: between pushes the linearization is frozen, so lambda
 maintained by omega updates equals the lambda solver's full
-Refresh_Lambda.  Other graphs, and ``SolverSettings(linear_solver="scipy")``,
-take this module's own path: each iteration assembles the active prefix
+Refresh_Lambda.  Other graphs, ``SolverSettings(linear_solver="scipy")``
+and a replay with a per-step callback (``on_step``, the CLI's -dsi dumps,
+as the JAX CLI turns its fused path off for them) take this module's own
+path: each iteration assembles the active prefix
 and solves it by the Schur complement (a split landmark class), the dense
 direct factor (<= DENSE_LIMIT scalar dims), the MIS-Schur block Cholesky,
 or the host oracle, retrying a non-finite step with escalating damping.
@@ -72,10 +74,12 @@ class IncrementalSolver:
 
     def __init__(self, system: GraphSystem, *, device, every_n: int = 1,
                  max_iterations: int = 10, dx_threshold: float = 20.0,
-                 settings: Optional[SolverSettings] = None):
+                 settings: Optional[SolverSettings] = None, on_step=None):
         """The reference lambda solver's incremental policy: a solve only
         when a loop closure is pending at an every-N boundary,
-        Optimize(max_iterations, dx_threshold)."""
+        Optimize(max_iterations, dx_threshold).  on_step(solver, step
+        index, states) runs after every step of run(); it takes the own
+        path."""
         if not system.edge_stores:
             raise ValueError("cannot replay an empty system (no edges)")
         t0 = time.perf_counter()
@@ -85,10 +89,11 @@ class IncrementalSolver:
         self.every_n = every_n
         self.max_iterations = max_iterations
         self.dx_threshold = dx_threshold
+        self.on_step = on_step
 
         dtype = incremental_dtype(device)
         self._delegate = None
-        if every_n and takes_fastl(system, self.settings):
+        if every_n and on_step is None and takes_fastl(system, self.settings):
             self._delegate = FastLSolver(
                 system, device=device, every_n=every_n, max_iterations=max_iterations,
                 dx_threshold=dx_threshold, onetime_dx=False, dtype=dtype)
@@ -162,14 +167,9 @@ class IncrementalSolver:
 
     # ------------------------------------------------------------------
 
-    def run(self, verbose: bool = False, on_step=None):
-        """Replay every edge; returns (final chi2, total iterations).
-        on_step(solver, step index, states) runs after every step (the
-        own path only)."""
+    def run(self, verbose: bool = False):
+        """Replay every edge; returns (final chi2, total iterations)."""
         if self._delegate is not None:
-            if on_step is not None:
-                raise ValueError("per-step callbacks need the own path (blocks over 6 wide, "
-                                 "or SolverSettings(linear_solver='scipy'))")
             out = self._delegate.run(verbose=verbose)
             self.elapsed = self._delegate.elapsed
             self.n_solves = self._delegate.stats["solve_points"]
@@ -197,8 +197,8 @@ class IncrementalSolver:
                     n_solves += 1
                     if verbose and n_solves % 200 == 0:
                         print(f"step {si}: solves={n_solves} iters={total_iters}")
-            if on_step is not None:
-                on_step(self, si, states)
+            if self.on_step is not None:
+                self.on_step(self, si, states)
 
         chi2 = float(asm.chi2_active(states, counts))
         asm.writeback_states(self.system, states)

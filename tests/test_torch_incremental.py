@@ -457,3 +457,38 @@ def test_inloop_updates_on_se3_equal_a_recompute(files):
     fl._sigma_update = checking_update
     fl.run()
     assert len(errs) >= 20 and max(errs) <= 1e-7, errs
+
+
+@pytest.mark.parametrize("solver", ["lambda", "fastl"])
+def test_cli_dump_each_step_matches_jax(tmp_path, capsys, solver):
+    """-dsi DIR through both CLIs on a small manhattan with loop closures,
+    -nsp 1: the same iterations; the incremental lambda solver takes its own
+    path and writes one solution per step, as many as the JAX CLI, each equal to the JAX one to 1e-8
+    (both solve float64 by a dense Cholesky; the CLI prints 10 decimals),
+    the last equal to the -dx file; with -fL both make the directory and
+    dump nothing."""
+    poses, edges = D.make_manhattan_2d(n_poses=80, seed=12)   # 7 loop closures
+    p = str(tmp_path / "m80.g2o")
+    D.write_g2o_2d(p, edges, poses)
+    flags = ["-nsp", "1"] + (["-fL"] if solver == "fastl" else [])
+    dirs = {k: tmp_path / f"dumps_{k}" for k in ("jax", "port")}
+    assert jmain.main(["-i", p, "-s", "-nb", "-dx", str(tmp_path / "jax.txt"),
+                       "-dsi", str(dirs["jax"])] + flags) == 0
+    want = capsys.readouterr().out.splitlines()
+    assert tmain.main(["-i", p, "-s", "--device", "cpu", "-dx", str(tmp_path / "port.txt"),
+                       "-dsi", str(dirs["port"])] + flags) == 0
+    got = capsys.readouterr().out.splitlines()
+    iters = [ln for ln in got if ln.startswith("solver took ")]
+    assert iters == [ln for ln in want if ln.startswith("solver took ")]
+    assert iters and iters[0] != "solver took 0 iterations"
+    names = {k: sorted(x.name for x in d.iterdir()) for k, d in dirs.items()}
+    assert names["port"] == names["jax"]
+    if solver == "fastl":
+        assert names["port"] == []
+        return
+    assert len(names["port"]) == tparse(p).num_edges
+    for name in names["port"]:
+        got, want = (np.loadtxt(dirs[k] / name) for k in ("port", "jax"))
+        assert np.abs(got - want).max() <= 1e-8 * max(np.abs(want).max(), 1.0), name
+    last = np.loadtxt(dirs["port"] / names["port"][-1])
+    assert np.array_equal(last, np.loadtxt(tmp_path / "port.txt"))

@@ -151,3 +151,35 @@ def test_truncated_line_is_reported_and_skipped(tmp_path, capsys):
     s = tparse(str(p))
     assert "line 3: line is truncated" in capsys.readouterr().err
     assert s.edge_stores["edge_p2c"].n == 1
+
+
+@pytest.mark.parametrize("kind", ["ba_markers", "pose_markers"])
+def test_parser_hooks_match_jax(tmp_path, kind):
+    """parse_g2o's on_marker hook runs at every CONSISTENCY_MARKER with the
+    system's edge and vertex counts of the JAX parser's at each call (a
+    marker BA file in camera chunks, and a pose graph with a marker after
+    every 25th line)."""
+    from slam_plus_plus_tpu_torch.app.incremental_ba import write_incremental_ba
+
+    p = str(tmp_path / f"{kind}.g2o")
+    if kind == "ba_markers":
+        write_incremental_ba(p, *tds.make_ba_scene(n_cams=6, n_points=50, seed=4),
+                             cams_per_chunk=2)
+    else:
+        poses, edges = tds.make_manhattan_2d(n_poses=60, seed=6)
+        tds.write_g2o_2d(p, edges, poses)
+        lines = open(p).read().splitlines()
+        with open(p, "w") as f:
+            for k, ln in enumerate(lines):
+                f.write(ln + "\n" + ("CONSISTENCY_MARKER\n" if k % 25 == 24 else ""))
+
+    def events(parse):
+        seen = []
+        system = parse(p, on_marker=lambda s: seen.append((s.num_edges, len(s.vertex_order))))
+        return seen, system.num_edges
+
+    want, want_edges = events(jparse)
+    got, got_edges = events(tparse)
+    assert got == want and got_edges == want_edges
+    assert len(got) >= 3 and got[-1][0] <= got_edges
+    assert all(a[0] <= b[0] for a, b in zip(got, got[1:])) and got[-1][0] > got[0][0]

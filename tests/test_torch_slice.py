@@ -135,7 +135,7 @@ def test_cli_without_card_fails(ba_file, capsys):
 
 #: every module of the port, all imported by the walk below
 PORT_MODULES = (
-    "app.dataassoc_example", "app.main", "assembly.assembler", "config",
+    "app.dataassoc_example", "app.incremental_ba", "app.main", "assembly.assembler", "config",
     "evaluation.distances", "evaluation.error_eval",
     "graph.system", "io.acceptance", "io.datasets", "io.parser", "linalg.block_cholesky",
     "linalg.bsr", "linalg.dense", "linalg.host_solver", "linalg.incremental_cholesky",
@@ -143,8 +143,9 @@ PORT_MODULES = (
     "manifolds.camera", "manifolds.se2", "manifolds.se3", "manifolds.sim3", "manifolds.so3",
     "models.ba_types", "models.rocv_types", "models.se2_types", "models.se3_types",
     "models.sim3_types", "models.types", "ops.p2c", "ops.panel", "ops.planar", "robust.losses",
-    "solvers.a_solver", "solvers.dogleg", "solvers.fastl", "solvers.gauss_newton",
-    "solvers.incremental", "solvers.lm", "solvers.spcg")
+    "solvers.a_solver", "solvers.dogleg", "solvers.dogleg_incremental", "solvers.fastl",
+    "solvers.fastl_online", "solvers.gauss_newton", "solvers.incremental", "solvers.lm",
+    "solvers.spcg")
 
 
 def test_port_never_imports_jax():
