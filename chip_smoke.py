@@ -140,9 +140,28 @@ it never falls back to the CPU.  Phases, each of which must pass:
      seconds, ms per edge and per solve point; (d) -dsi on a small
      manhattan with -nsp 1 through the CLI's code path: as many dumps on
      the card as on the CPU, the card's last equal to its -dx file and
-     within 1e-8 x scale of the CPU's; K1 and K2 launched 0 times.
-     Phase 10's, phase 11's, phase 12's and the whole smoke's wall times
-     are printed.
+     within 1e-8 x scale of the CPU's; K1 and K2 launched 0 times;
+ 13. the native host code, the facade and the rest of the CLI: (a) the
+     C++ g2o reader (io/native_parser.py, built with g++) against the
+     Python parser on venice-real and the bench scene, equal systems, with
+     each reader's seconds (phase 8's venice row already parsed through the
+     C++ reader, its seconds printed there); (b) the C++ replay engine
+     (solvers/native_engine.py) on the host's CPU through the CLI's code
+     path with --device cpu --native on the incremental rows of NATIVE_ROWS,
+     each gated as in phase 10, with wall, parse, construct and replay
+     seconds, ms per solve point and phase 10's card reading of the same
+     row beside it (the crossover), the host's CPU model beside the card's
+     name; and a small replay, C++ engine against the torch engine on the
+     CPU; (c) BAOptimizer(device="cuda") fed the bench scene one call at a
+     time (equal to the parsed file), LM optimize(5) gated at 1.05 x
+     222855.82 with K1 and K2 launched, and covariances() against the
+     sparse-reduced Schur route at phase 11's tolerance; (d) the port's C
+     API built, native/ba_c_test.c linked against it with gcc and run with
+     SLAMPP_DEVICE unset: exit 0 and "C API OK"; (e) -rmut returns 0 and
+     -rmb synthetic factor prints its sheet, on the card; (f) one CLI run's
+     -v memory line with the card's peak.
+     Phase 10's to phase 13's and the whole smoke's wall times are
+     printed.
 
 The last two lines are a JSON object describing each kernel and the result
 line {"ok": true, "device": {...}}.
@@ -254,6 +273,12 @@ def main() -> int:
     incremental_ba_phase(torch, dev, card, phase10["intel-scale -nsp 1 -fL"][0])
     print(f"phase 12 (incremental BA, online FastL, -dsi; float64): "
           f"{time.perf_counter() - t0:.1f} s wall")
+
+    # ---- 13. the native host code, the facade, the C API, -rmut / -rmb / -v ----
+    t0 = time.perf_counter()
+    native_phase(torch, dev, card, (k1, k2), phase10)
+    print(f"phase 13 (the C++ reader and engine, the BA facade and its C API, -rmut / -rmb "
+          f"/ -v): {time.perf_counter() - t0:.1f} s wall")
     print(f"the whole smoke: {time.perf_counter() - T_START:.1f} s wall")
 
     print(f"card: {card}")
@@ -1084,7 +1109,9 @@ def venice_row(torch, dev, card, k1):
     check(launches[1] == 0, f"venice-real: K2 launched {launches[1]} times")
     print(f"venice-real ({solver.system.num_vertices} vertices, {solver.system.num_edges} "
           f"edges; {asm.Np} x {asm.Bp} + {asm.Nl} x {asm.Bl} dims): scene file "
-          f"{t_scene:.1f} s, construct {solver.timing['construct']:.1f} s, CLI path "
+          f"{t_scene:.1f} s, parse {solver.timing['parse']:.2f} s by the C++ reader (the "
+          f"Python parser took 10.5 s in PRs 7 and 8), construct "
+          f"{solver.timing['construct']:.1f} s, CLI path "
           f"{t_cli:.1f} s with parse; sparse_reduced {sch.sparse_reduced}, clique "
           f"{sch.clique} (M {sch.M}), Ksc {sch.Ksc}, MIS levels {sch.reduced_chol.n_levels}, "
           f"bottom blocks {sch.reduced_chol.plan.n_bottom}")
@@ -1514,7 +1541,7 @@ def incremental_small_check(torch, dev):
 
 def incremental_row(torch, dev, card, label):
     """One incremental acceptance row through the CLI's code path; returns
-    (chi2, ms per solve point)."""
+    (chi2, ms per solve point, wall seconds of the CLI's run)."""
     from slam_plus_plus_tpu_torch.app import main as cli
     from slam_plus_plus_tpu_torch.io import acceptance
     from slam_plus_plus_tpu_torch.solvers.fastl import FastLSolver
@@ -1547,7 +1574,7 @@ def incremental_row(torch, dev, card, label):
           f"{fl.chol.plan.n_bottom} blocks; wall {wall:.1f} s (parse {fl.timing['parse']:.1f} s, "
           f"construct {fl.timing['construct']:.1f} s); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; on {card}")
-    return chi2, ms_point
+    return chi2, ms_point, wall
 
 
 class _Profiled(Exception):
@@ -1595,7 +1622,7 @@ def profile_solve_points(torch, dev, label):
 
 
 def incremental_phase(torch, dev, card):
-    """Returns {row label: (chi2, ms per solve point)}."""
+    """Returns {row label: (chi2, ms per solve point, wall seconds)}."""
     from slam_plus_plus_tpu_torch.io import acceptance
     from slam_plus_plus_tpu_torch.ops.p2c import p2c_edge_terms
     from slam_plus_plus_tpu_torch.ops.panel import build_panels
@@ -1930,7 +1957,7 @@ def marginals_fastl_row(torch, dev, card, label, phase10):
     chi2, iters = fl.run()
     wall = time.perf_counter() - t0
     check(fl.asm.dtype == torch.float64, f"{label}: the incremental engine runs float64")
-    chi2_10, ms_10 = phase10[label]
+    chi2_10, ms_10, _wall = phase10[label]
     rel = abs(chi2 - chi2_10) / chi2_10
     check(rel <= MARG_CHI2_TOL, f"{label} with marginals: chi2 {chi2} against phase 10's "
           f"{chi2_10}, {rel:.3e} relative")
@@ -2337,6 +2364,295 @@ def incremental_ba_phase(torch, dev, card, intel_fl_chi2):
     check(launches == (0, 0), f"phase 12 launched K1/K2 {launches} times")
     print(f"launches during phase 12: p2c_edge_terms {launches[0]}, build_panels "
           f"{launches[1]} (no Pallas kernel lies on this path)")
+
+
+# ---- phase 13: the native host code, the facade, the C API, -rmut / -v -------
+
+#: (b) the incremental rows the C++ engine replays on the card host's CPU
+#: (--device cpu --native), each gated as in phase 10
+NATIVE_ROWS = ("manhattan3500 -nsp 1 -fL", "intel-scale -nsp 1 -fL", "vp-scale -nsp 1 -fL",
+               "manhattan3500 -nsp 1", "city10k -nsp 1", "trees10k-incr -nsp 1 -fL")
+#: (b) the small replay, C++ engine against the torch engine on the CPU:
+#: equal iterations and pushes, chi2 relative (tests/test_fastl.py:185-222)
+NATIVE_SMALL, NATIVE_TORCH_TOL = dict(n_poses=300, seed=92, loop_prob=0.3), 1e-6
+#: the Python parser's venice-real parse on the card's host (PRs 7 and 8)
+VENICE_PY_PARSE_S = 10.5
+
+
+def host_cpu():
+    """The host CPU as lscpu names it, and /proc/cpuinfo's vendor, family,
+    model and name of its first CPU."""
+    out = subprocess.run(["lscpu"], capture_output=True, text=True).stdout
+    lscpu = next((ln.split(":", 1)[1].strip() for ln in out.splitlines()
+                  if ln.startswith("Model name")), "not reported")
+    info = {}
+    with open("/proc/cpuinfo") as f:
+        for ln in f:
+            if not ln.strip():
+                break
+            k, _, v = ln.partition(":")
+            info[k.strip()] = v.strip()
+    return (f"lscpu model name {lscpu!r}; /proc/cpuinfo: " +
+            ", ".join(f"{k} {info.get(k, 'not reported')!r}"
+                      for k in ("vendor_id", "cpu family", "model", "model name")) +
+            f"; {os.cpu_count()} logical CPUs")
+
+
+def _same_system(a, b, what):
+    """Two GraphSystems hold the same graph: vertex order, insertion log and
+    every store exactly (tests/test_native_parser.py's checks, exact)."""
+    check(a.vertex_order == b.vertex_order, f"{what}: vertex order")
+    check(a._edge_insert_log == b._edge_insert_log, f"{what}: edge insertion log")
+    check(set(a.vertex_stores) == set(b.vertex_stores) and
+          set(a.edge_stores) == set(b.edge_stores), f"{what}: types")
+    for t, sa in a.vertex_stores.items():
+        check(np.array_equal(sa.data, b.vertex_stores[t].data), f"{what}: {t} states")
+    for t, ea in a.edge_stores.items():
+        eb = b.edge_stores[t]
+        check(ea.n == eb.n and all(np.array_equal(getattr(ea, f)[:ea.n], getattr(eb, f)[:eb.n])
+                                   for f in ("vertex_ids", "measurements", "informations")),
+              f"{what}: {t} edges")
+
+
+def reader_check(host):
+    """(a): venice-real and the bench scene by the Python parser and the
+    C++ reader, equal systems, each reader's seconds."""
+    from slam_plus_plus_tpu_torch.io import acceptance
+    from slam_plus_plus_tpu_torch.io.native_parser import parse_g2o_fast
+    from slam_plus_plus_tpu_torch.io.parser import parse_g2o
+    from slam_plus_plus_tpu_torch.ops import _build
+
+    lib, t_build = _build.build_host("reader", force=True)
+    print(f"(a) the C++ reader: g++ build {t_build:.1f} s")
+    for label, path in (("venice-real", acceptance.dataset("venice-real", _scene_dir())),
+                        ("bench scene", os.path.join(
+                            _scene_dir(), f"bench_ba_{N_CAMS}_{N_POINTS}_{SCENE_SEED}.txt"))):
+        t0 = time.perf_counter()
+        fast = parse_g2o_fast(path)
+        t_fast = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        py = parse_g2o(path)
+        t_py = time.perf_counter() - t0
+        _same_system(fast, py, f"{label}: the C++ reader against the Python parser")
+        print(f"(a) {label} ({py.num_vertices} vertices, {py.num_edges} edges): the C++ reader "
+              f"{t_fast:.2f} s, the Python parser {t_py:.2f} s ({t_py / t_fast:.1f}x), equal "
+              f"systems; host {host}")
+        del fast, py
+
+
+def native_small_check():
+    """(b): a small replay by the C++ engine against the torch engine on
+    the CPU."""
+    from slam_plus_plus_tpu_torch.io import datasets as D
+    from slam_plus_plus_tpu_torch.io.parser import parse_g2o
+    from slam_plus_plus_tpu_torch.solvers.fastl import FastLSolver
+
+    path = os.path.join(_scene_dir(), "smoke_manhattan_native.g2o")
+    poses, edges = D.make_manhattan_2d(**NATIVE_SMALL)
+    D.write_g2o_2d(path, edges, poses)
+    runs = []
+    for native in (True, False):
+        fl = FastLSolver(parse_g2o(path), device="cpu", native=native)
+        chi2, iters = fl.run()
+        runs.append((chi2, iters, fl.stats["pushes"]))
+    (chi2, iters, pushes), (tchi2, titers, tpushes) = runs
+    rel = abs(chi2 - tchi2) / tchi2
+    check((iters, pushes) == (titers, tpushes) and rel <= NATIVE_TORCH_TOL,
+          f"small replay: C++ engine {chi2} in {iters} ({pushes} pushes), torch engine {tchi2} "
+          f"in {titers} ({tpushes})")
+    print(f"(b) small -nsp 1 -fL replay (manhattan {NATIVE_SMALL['n_poses']}) on the CPU: C++ "
+          f"engine {chi2:.6f} in {iters} iterations, {pushes} pushes; torch engine "
+          f"{tchi2:.6f} in {titers}, {tpushes}; {rel:.1e} relative (tol {NATIVE_TORCH_TOL:g})")
+
+
+def native_row(label, phase10, host, card):
+    """(b): one incremental row through the CLI's code path with --device
+    cpu --native, gated as in phase 10, beside phase 10's card reading of
+    the same row in this run (phase10: {label: (chi2, ms per solve point,
+    wall)}, empty when phase 13 runs alone)."""
+    from slam_plus_plus_tpu_torch.app import main as cli
+    from slam_plus_plus_tpu_torch.io import acceptance
+    from slam_plus_plus_tpu_torch.solvers.fastl import FastLSolver
+
+    name, flags, golden, golden_iters = acceptance.INCREMENTAL_ROWS[label]
+    args = cli.build_argparser().parse_args(
+        ["-i", pose_dataset(name), "--device", "cpu", "--native", "-s", "-dx", ""] + flags)
+    t0 = time.perf_counter()
+    chi2, iters, solver = cli.run(args)
+    wall = time.perf_counter() - t0
+    fl = getattr(solver, "_delegate", None) or solver
+    check(isinstance(fl, FastLSolver) and fl._native is not None,
+          f"{label} --native: not the C++ engine")
+    check(np.isfinite(chi2) and chi2 <= acceptance.GATE * golden,
+          f"{label} --native: chi2 {chi2:.2f} > {acceptance.GATE} x {golden}")
+    st = fl.stats
+    ms_point = st["elapsed"] / max(st["solve_points"], 1) * 1e3
+    if label in phase10:
+        _chi2_10, ms_10, wall_10 = phase10[label]
+        card_reading = (f"the card engine in phase 10 of this run: wall {wall_10:.1f} s, "
+                        f"{ms_10:.2f} ms per solve point ({wall_10 / wall:.1f}x the host's wall)")
+    else:
+        card_reading = "the card engine: phase 10 not run in this call"
+    print(f"(b) {label} --device cpu --native: chi2 {chi2:.2f} in {iters} iterations, "
+          f"{st['pushes']} pushes <= {acceptance.GATE} x {golden} (ratio {chi2 / golden:.4f}; "
+          f"the reference {golden} in {golden_iters}); wall {wall:.2f} s (parse "
+          f"{fl.timing['parse']:.2f} s, construct {fl.timing['construct']:.2f} s, replay "
+          f"{st['elapsed']:.2f} s), {st['solve_points']} solve points, {ms_point:.2f} ms per "
+          f"solve point; {card_reading}; host {host}; card {card}")
+
+
+def _bench_scene_values():
+    """The bench scene as write_g2o_ba writes it (the same rounding), so the
+    facade holds the file's graph: cameras, points, observations."""
+    from slam_plus_plus_tpu_torch.io import datasets as D
+
+    cams, pts, obs = D.make_ba_scene(n_cams=N_CAMS, n_points=N_POINTS, seed=SCENE_SEED)
+    rng = np.random.default_rng(1)
+    r10 = lambda v: float(f"{v:.10f}")     # noqa: E731
+    cams = [([r10(v) for v in pos], [r10(v) for v in q], fx, fy, cx, cy, d)
+            for (pos, q, fx, fy, cx, cy, d) in cams]
+    pts = [[r10(v) for v in pt + rng.normal(0, 0.05, 3)] for pt in pts]
+    return cams, pts, [(pid, cid, r10(u), r10(v)) for (pid, cid, u, v) in obs]
+
+
+def facade_check(torch, dev, card, kernels):
+    """(c): the bench scene fed to BAOptimizer(device="cuda") one call at
+    a time, equal to the parsed file; LM optimize(5) gated as phase 4's,
+    launching K1 and K2; covariances() against the sparse-reduced Schur
+    route on the same states at phase 11's tolerance."""
+    from slam_plus_plus_tpu_torch.app.ba_optimizer import BAOptimizer
+    from slam_plus_plus_tpu_torch.assembly.assembler import Assembler
+    from slam_plus_plus_tpu_torch.io.native_parser import parse_g2o_fast
+    from slam_plus_plus_tpu_torch.marginals import Marginals
+    from slam_plus_plus_tpu_torch.ops.p2c import p2c_edge_terms
+    from slam_plus_plus_tpu_torch.ops.panel import build_panels
+
+    cams, pts, obs = _bench_scene_values()
+    eye = np.eye(2)
+    opt = BAOptimizer(device=dev)
+    t0 = time.perf_counter()
+    for c, (pos, q, fx, fy, cx, cy, d) in enumerate(cams):
+        opt.add_cam_vertex_g2o(c, pos, q, fx, fy, cx, cy, d)
+    for p, pt in enumerate(pts):
+        opt.add_xyz_vertex(N_CAMS + p, pt)
+    for (pid, cid, u, v) in obs:
+        opt.add_p2c_edge(N_CAMS + pid, cid, (u, v), eye)
+    t_feed = time.perf_counter() - t0
+    _same_system(opt.system, parse_g2o_fast(os.path.join(
+        _scene_dir(), f"bench_ba_{N_CAMS}_{N_POINTS}_{SCENE_SEED}.txt")),
+        "(c) the fed facade against the parsed bench file")
+
+    p2c_edge_terms.launches = 0
+    build_panels.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chi2, iters = opt.optimize(5)
+    torch.cuda.synchronize()
+    t_lm = time.perf_counter() - t0
+    launches = (p2c_edge_terms.launches, build_panels.launches)
+    check(np.isfinite(chi2) and chi2 <= 1.05 * REF_FINAL_CHI2,
+          f"(c) facade LM chi2 {chi2:.2f} > 1.05 x {REF_FINAL_CHI2}")
+    check(all(n > 0 for n in launches), f"(c) facade LM launched K1/K2 {launches} times")
+    for k, n in zip(kernels, launches):
+        k["launches_facade"] = n
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = opt.covariances()
+    torch.cuda.synchronize()
+    ms_cov = (time.perf_counter() - t0) * 1e3
+    asm = Assembler(opt.system, device=dev, dtype=torch.float64)
+    bs = asm.assemble(asm.snapshot_states(opt.system))
+    check(Marginals(asm, gauge_jitter=BA_JITTER).route == "schur_uniform",
+          "(c) covariances(): not the uniform Schur route")
+    ref = Marginals(asm, gauge_jitter=BA_JITTER, mode="sparse_schur").compute(bs)
+    p_err, l_err = _marg_rel(res, ref, asm)
+    check(p_err <= MARG_BA_TOL and l_err <= MARG_BA_TOL,
+          f"(c) covariances() against sparse_schur: p_diag {p_err:.3e}, l_diag {l_err:.3e}")
+    print(f"(c) BAOptimizer(device={dev.type!r}) fed the bench scene ({opt.n_vertices()} "
+          f"vertices, {opt.n_edges()} edges) one call at a time in {t_feed:.1f} s, equal to "
+          f"the parsed file; LM optimize(5): chi2 {chi2:.2f} in {iters} iterations <= 1.05 x "
+          f"{REF_FINAL_CHI2} (ratio {chi2 / REF_FINAL_CHI2:.6f}), {t_lm:.2f} s with set-up, "
+          f"launching p2c_edge_terms {launches[0]}, build_panels {launches[1]} times; "
+          f"covariances() (float64, uniform Schur route, K1 + K2) {ms_cov:.1f} ms with its "
+          f"assembly and plan, against the sparse-reduced route p_diag {p_err:.3e}, l_diag's "
+          f"real dims {l_err:.3e} x scale (tol {MARG_BA_TOL:g}); on {card}")
+
+
+def c_api_check(card):
+    """(d): the port's C API built, native/ba_c_test.c linked against it
+    with gcc and run with SLAMPP_DEVICE unset (the card)."""
+    from slam_plus_plus_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    lib, _ = _build.build_host("ba_c_api", force=True)
+    t_build = time.perf_counter() - t0
+    exe = os.path.join(_build.BUILD_DIR, "ba_c_test")
+    t0 = time.perf_counter()
+    cc = subprocess.run(["gcc", "-O2", os.path.join(REPO, "native", "ba_c_test.c"), "-o", exe,
+                         lib, f"-Wl,-rpath,{os.path.dirname(lib)}"], capture_output=True, text=True)
+    t_link = time.perf_counter() - t0
+    check(cc.returncode == 0, f"(d) gcc native/ba_c_test.c: {cc.stderr}")
+    env = {k: v for k, v in os.environ.items() if k != "SLAMPP_DEVICE"}
+    env["SLAMPP_ROOT"] = REPO
+    t0 = time.perf_counter()
+    run = subprocess.run([exe], capture_output=True, text=True, timeout=600, env=env,
+                         cwd=_scene_dir())
+    t_run = time.perf_counter() - t0
+    check(run.returncode == 0 and "C API OK" in run.stdout,
+          f"(d) ba_c_test exit {run.returncode}: {run.stdout} {run.stderr[-2000:]}")
+    print(f"(d) C API: g++ build {t_build:.1f} s, gcc link of native/ba_c_test.c {t_link:.1f} "
+          f"s, run {t_run:.1f} s with SLAMPP_DEVICE unset (the card): "
+          f"{' / '.join(run.stdout.split())}; on {card}")
+
+
+def matrix_flags_check(dev, card):
+    """(e): -rmut returns 0 and -rmb synthetic factor prints its sheet, on
+    the card."""
+    from slam_plus_plus_tpu_torch.app import main as cli
+
+    t0 = time.perf_counter()
+    rc = cli.main(["-rmut", "--device", dev.type, "-s"])
+    t_ut = time.perf_counter() - t0
+    check(rc == 0, f"(e) -rmut on {dev.type} returned {rc}")
+    print(f"(e) -rmut --device {dev.type}: 0 in {t_ut:.2f} s; -rmb synthetic factor:")
+    t0 = time.perf_counter()
+    rc = cli.main(["-rmb", "synthetic", "factor", "--device", dev.type])
+    check(rc == 0, f"(e) -rmb on {dev.type} returned {rc}")
+    print(f"(e) -rmb: {time.perf_counter() - t0:.1f} s; on {card}")
+
+
+def verbose_memory_check(torch, dev):
+    """(f): one CLI run with -v on the card prints the memory line with the
+    card's peak (reset just before the run)."""
+    import contextlib
+    import io
+
+    from slam_plus_plus_tpu_torch.app import main as cli
+
+    buf = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["-i", os.path.join(_scene_dir(), "smoke_manhattan_native.g2o"), "-po",
+                       "-v", "--device", dev.type, "-dx", ""])
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("memory:")]
+    check(rc == 0 and len(lines) == 1 and f"cuda:{dev.index}: " in lines[0] and "peak" in lines[0],
+          f"(f) -v: no memory line with the card's peak in {buf.getvalue()[-800:]}")
+    print(f"(f) -v --device {dev.type}: {lines[0]}")
+
+
+def native_phase(torch, dev, card, kernels, phase10):
+    host = host_cpu()
+    print(f"phase 13 host: {host}; card: {card}")
+    reader_check(host)
+    native_small_check()
+    for label in NATIVE_ROWS:
+        native_row(label, phase10, host, card)
+    facade_check(torch, dev, card, kernels)
+    c_api_check(card)
+    matrix_flags_check(dev, card)
+    verbose_memory_check(torch, dev)
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -4,7 +4,8 @@ slam_plus_plus_tpu/app/main.py, reference src/slam_app/Main.cpp:41).
     python -m slam_plus_plus_tpu_torch.app.main -i file.g2o [-po] [-A | -lm | -dl]
         [-nsp N | -lsp N] [-fL] [-mnsi N] [-nset X]
         [-v] [-s] [-mfnsi N] [-fnset X] [-us] [-nb] [-dx FILE] [-gt FILE]
-        [--rpe-delta N] [-dm] [-dsi DIR] [--device cuda|cpu]
+        [--rpe-delta N] [-dm] [-dsi DIR] [--device cuda|cpu] [--native]
+    python -m slam_plus_plus_tpu_torch.app.main -rmut | -rmb NAME TYPE [--device cuda|cpu]
 
   -i <file>      input dataset (g2o dialect: mono, intrinsics, stereo and
                  spheron BA; SE(2) and SE(3) pose graphs and landmarks; ROCV)
@@ -14,6 +15,9 @@ slam_plus_plus_tpu/app/main.py, reference src/slam_app/Main.cpp:41).
                  always pushed)
   -fL, -L        with -nsp / -lsp, FastL: the maintained factor with omega
                  updates (solvers/fastl.py); without them the batch solve
+  --native       with -nsp / -lsp and --device cpu: the replay runs in the
+                 C++ engine (solvers/native_engine.py; SE(2) and 2D-landmark
+                 graphs); any other case is an error, never the torch engine
   -mnsi <N>      max nonlinear-solve iterations        (default 10)
   -nset <e>      nonlinear-solve dx threshold          (default 20)
   -A             the A solver: GN over the rectangular Jacobian, solved by
@@ -37,15 +41,23 @@ slam_plus_plus_tpu/app/main.py, reference src/slam_app/Main.cpp:41).
                  lambda solver then takes its own path, as the JAX CLI's
                  dumps turn its fused path off.  With -fL the directory is
                  made and nothing is dumped, as in the JAX CLI
-  -s / -v        silent / verbose
+  -s / -v        silent / verbose; -v also prints the memory line (host
+                 RSS and, on a card, its allocator's use and peak)
+  -rmut          the block-matrix unit tests (app/block_unit.py), then exit
+  -rmb NAME TYPE the block-matrix benchmark sheet (TYPE: alloc, factor or
+                 all), then exit; both run on --device, before any parse
   --device       cuda (default; float32 batch solvers, float64 incremental
                  ones) or cpu (float64).  There is no fallback: cuda without
                  a card is an error.
 
+The file is read by the C++ g2o reader (io/native_parser.py), as the
+reference's CLI reads it with its C++ parser; a line the Python parser
+would read and the C++ reader cannot is an error.
+
 The printed lines match the JAX CLI's: ``initial denormalized chi2 error``
 (with -v, batch), ``done. it took``, ``solver took N iterations``,
-``denormalized chi2 error``, the ATE/RPE lines, ``marginals: mean pose
-sigma`` and ``solution written to``;
+``denormalized chi2 error``, the ``memory:`` line (-v), the ATE/RPE lines,
+``marginals: mean pose sigma`` and ``solution written to``;
 a missing -i or a file with no edges prints the JAX CLI's error and
 returns 1.
 """
@@ -86,6 +98,10 @@ def build_argparser():
     p.add_argument("-dm", "--marginals", action="store_true")
     p.add_argument("-dsi", "--dump-each-step", default=None, metavar="DIR")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    p.add_argument("--native", action="store_true")
+    p.add_argument("-rmut", "--run-matrix-unit-tests", action="store_true")
+    p.add_argument("-rmb", "--run-matrix-benchmarks", nargs=2, metavar=("NAME", "TYPE"),
+                   default=None)
     return p
 
 
@@ -99,14 +115,17 @@ def run(args):
     evaluate against -gt, recover -dm's marginals and write -dx.  Returns
     (final chi2, iterations, the solver; with -dm the solver's
     ``marginals_report`` holds marginals_report's result); raises
-    DatasetError on a file with no edges."""
-    from slam_plus_plus_tpu_torch.io.parser import parse_g2o, peek_dataset
+    DatasetError on a file with no edges, UnsupportedReplay where --native
+    asks the C++ engine for a replay it does not serve."""
+    from slam_plus_plus_tpu_torch.io.native_parser import parse_g2o_fast
+    from slam_plus_plus_tpu_torch.io.parser import peek_dataset
     from slam_plus_plus_tpu_torch.solvers.a_solver import ASolver
     from slam_plus_plus_tpu_torch.solvers.dogleg import DoglegSolver
     from slam_plus_plus_tpu_torch.solvers.fastl import FastLSolver
     from slam_plus_plus_tpu_torch.solvers.gauss_newton import GaussNewtonSolver
     from slam_plus_plus_tpu_torch.solvers.incremental import IncrementalSolver
     from slam_plus_plus_tpu_torch.solvers.lm import LevenbergMarquardtSolver
+    from slam_plus_plus_tpu_torch.utils.memusage import format_report
 
     flags = peek_dataset(args.input)
     is_ba = flags["has_ba"] or flags["has_stereo"] or flags["has_spheron"]
@@ -114,7 +133,7 @@ def run(args):
         fam = [k for k, v in flags.items() if v]
         print(f"dataset: {args.input} ({', '.join(fam) or 'unknown'})")
     t0 = time.perf_counter()
-    system = parse_g2o(args.input)
+    system = parse_g2o_fast(args.input)
     t_parse = time.perf_counter() - t0
     if not args.silent:
         print(f"parsed {system.num_vertices} vertices, {system.num_edges} "
@@ -142,9 +161,10 @@ def run(args):
                   max_iterations=args.mnsi if args.nonlinear_solve_period else 1,
                   dx_threshold=args.nset if args.nonlinear_solve_period else 0.0)
         if kind == "fast_l":
-            solver = FastLSolver(system, **kw)
+            solver = FastLSolver(system, native=args.native, **kw)
         else:
-            solver = IncrementalSolver(system, on_step=dump_step if dump_dir else None, **kw)
+            solver = IncrementalSolver(system, on_step=dump_step if dump_dir else None,
+                                       native=args.native, **kw)
         chi2, iters = solver.run(verbose=args.verbose)
     else:
         cls = {"lambda_lm": LevenbergMarquardtSolver, "lambda_dl": DoglegSolver,
@@ -157,6 +177,8 @@ def run(args):
     print(f"done. it took {time.perf_counter() - t0:.5f} sec")
     print(f"solver took {iters} iterations")
     print(f"denormalized chi2 error: {chi2:.2f}")
+    if args.verbose:
+        print(format_report(args.device))
     if args.ground_truth:
         _evaluate_vs_ground_truth(system, args.ground_truth, args.rpe_delta)
     if args.marginals:
@@ -230,17 +252,38 @@ def _dump_solution(system, path):
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
-    if args.input is None:
-        print("error: no input file (-i)", file=sys.stderr)
+    if args.native and args.device != "cpu":
+        print("error: --native runs the C++ replay engine on the host; pass --device cpu",
+              file=sys.stderr)
+        return 1
+    if args.native and not (args.nonlinear_solve_period or args.linear_solve_period):
+        print("error: --native serves the incremental solvers (-nsp / -lsp)", file=sys.stderr)
         return 1
     import torch
     if args.device == "cuda" and not torch.cuda.is_available():
         print("error: --device cuda, but torch sees no CUDA device; "
               "run on a GPU or pass --device cpu", file=sys.stderr)
         return 2
+    # -rmut / -rmb return before any parse (reference src/slam_app/Main.cpp:91-104)
+    if args.run_matrix_unit_tests:
+        from slam_plus_plus_tpu_torch.app.block_unit import run_unit_tests
+        return 0 if run_unit_tests(device=args.device, verbose=not args.silent) else 1
+    if args.run_matrix_benchmarks is not None:
+        from slam_plus_plus_tpu_torch.app.block_unit import run_benchmarks
+        name, btype = args.run_matrix_benchmarks
+        try:
+            run_benchmarks(name, btype, device=args.device, verbose=not args.silent)
+        except ValueError as e:     # the benchmark type
+            print(f"error: -rmb: {e}", file=sys.stderr)
+            return 1
+        return 0
+    if args.input is None:
+        print("error: no input file (-i)", file=sys.stderr)
+        return 1
+    from slam_plus_plus_tpu_torch.solvers.native_engine import UnsupportedReplay
     try:
         run(args)
-    except DatasetError as e:
+    except (DatasetError, UnsupportedReplay) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
     return 0

@@ -121,6 +121,49 @@ class GraphSystem:
                           np.asarray(info, dtype=np.float64))
         self._edge_insert_log.append((type_name, li))
 
+    # ---- bulk insertion (the C++ reader's path) ------------------------
+
+    def bulk_add_vertices(self, type_name: str, global_ids, states) -> None:
+        """Append many new vertices of one type, as that many add_vertex
+        calls would (the ids must be new and distinct)."""
+        store = self.vertex_stores.setdefault(type_name, _VertexStore(VERTEX_TYPES[type_name]))
+        n_new = len(global_ids)
+        need = store.n + n_new
+        if need > store.states.shape[0]:
+            grown = np.zeros((max(need, 2 * store.states.shape[0]), store.states.shape[1]))
+            grown[:store.n] = store.states[:store.n]
+            store.states = grown
+        store.states[store.n:need] = states
+        ids = [int(g) for g in global_ids]
+        store.global_ids.extend(ids)
+        self.vertex_directory.update(zip(ids, ((type_name, li) for li in range(store.n, need))))
+        self.vertex_order.extend(ids)
+        store.n = need
+
+    def bulk_add_edges(self, type_name: str, vertex_ids, z, info) -> None:
+        """Append many edges of one type, as that many add_edge calls would
+        when every vertex exists with the edge's slot types (nothing is
+        auto-created here)."""
+        etype = EDGE_TYPES[type_name]
+        store = self.edge_stores.setdefault(type_name, _EdgeStore(etype))
+        E = len(vertex_ids)
+        base, need = store.n, store.n + E
+        if need > store.vertex_ids.shape[0]:
+            cap = max(need, 2 * store.vertex_ids.shape[0])
+
+            def grow(a):
+                g = np.zeros((cap,) + a.shape[1:], dtype=a.dtype)
+                g[:base] = a[:base]
+                return g
+            store.vertex_ids = grow(store.vertex_ids)
+            store.measurements = grow(store.measurements)
+            store.informations = grow(store.informations)
+        store.vertex_ids[base:need] = vertex_ids
+        store.measurements[base:need] = z
+        store.informations[base:need] = info
+        store.n = need
+        self._edge_insert_log.extend((type_name, li) for li in range(base, need))
+
     @property
     def num_vertices(self) -> int:
         return len(self.vertex_order)

@@ -37,6 +37,12 @@ aids.  Host syncs: one read of |dx| per iteration (and, in float32, the
 bottom factor's ridge-ladder status per factorization).  The whole
 replay's reachability walks are done at construction (the solve schedule
 is host-static); everything a solve point uploads goes in one copy.
+
+``native=True`` (on the CPU only) builds the host half alone — the
+assembler, the plan, the steps and the omega metadata — and hands the
+replay to the C++ engine (solvers/native_engine.py), which serves SE(2)
+and 2D-landmark graphs in float64 with the dirty refresh and no marginals;
+any other replay raises instead of running on the torch engine.
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ from slam_plus_plus_tpu_torch.linalg.block_cholesky import BlockCholeskySolver
 from slam_plus_plus_tpu_torch.linalg.incremental_cholesky import IncrementalCholesky
 from slam_plus_plus_tpu_torch.marginals.covariance import IncrementalMarginals
 from slam_plus_plus_tpu_torch.models.types import EDGE_TYPES, VERTEX_TYPES
+from slam_plus_plus_tpu_torch.solvers.native_engine import NativeReplay, check_supported
 
 #: edges of one type per omega batch; larger pending batches are chunked
 OMEGA_EDGE_CAP = 16
@@ -105,7 +112,7 @@ class FastLSolver:
     def __init__(self, system: GraphSystem, *, device, every_n: int = 1,
                  max_iterations: int = 10, dx_threshold: float = 20.0,
                  refresh: str = "dirty", onetime_dx: bool = True,
-                 marginals: bool = False, dtype=None):
+                 marginals: bool = False, dtype=None, native: bool = False):
         """onetime_dx=False gives the reference LAMBDA solver's incremental
         report: chi2 and the solution at the last pushed linearization, no
         trailing one-time dx (its Optimize discards a below-threshold dx,
@@ -114,13 +121,18 @@ class FastLSolver:
         equals the lambda solver's full Refresh_Lambda: one engine serves
         both solvers.  marginals: maintain the covariance diagonal in the
         loop, from the maintained stores of refresh="dirty".  dtype: None takes
-        ``incremental_dtype(device)``."""
+        ``incremental_dtype(device)``.  native: run the replay by the C++
+        engine (raises UnsupportedReplay, naming the reason, where it does
+        not serve the replay)."""
         if refresh not in ("dirty", "full"):
             raise ValueError(f"refresh {refresh!r}: dirty or full")
         if marginals and refresh != "dirty":
             raise ValueError("in-loop marginals need refresh='dirty'")
         if not system.edge_stores:
             raise ValueError("cannot replay an empty system (no edges)")
+        if native:
+            check_supported(system, device=device, refresh=refresh, marginals=marginals,
+                            dtype=dtype)
         t0 = time.perf_counter()
         pin_precision()
         self.system = system
@@ -148,8 +160,11 @@ class FastLSolver:
         self._build_replay_plan()
 
         self.inc = None
+        self._native = NativeReplay(self) if native else None
         self._prepared_all: Dict[int, object] = {}
-        if refresh == "dirty":
+        if native:
+            pass    # the C++ engine keeps its own factor: no torch stores
+        elif refresh == "dirty":
             self.inc = IncrementalCholesky(self.chol)
             # the whole replay's walks in one vectorized pass
             keys = sorted(self._sched)
@@ -457,6 +472,12 @@ class FastLSolver:
     def run(self, verbose: bool = False):
         """Replay every edge with FastL semantics; returns (chi2, iterations).
         ``stats`` then holds the replay's counts and its wall seconds."""
+        if self._native is not None:
+            chi2, iters, self.stats = self._native.run()
+            self.elapsed = self.timing["replay"] = self.stats["elapsed"]
+            if verbose:
+                print(f"fastl done (C++ engine): {self.stats}")
+            return chi2, iters
         t0 = time.perf_counter()
         asm = self.asm
         states = asm.snapshot_states(self.system)

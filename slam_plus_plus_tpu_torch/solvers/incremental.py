@@ -28,6 +28,8 @@ and solves it by the Schur complement (a split landmark class), the dense
 direct factor (<= DENSE_LIMIT scalar dims), the MIS-Schur block Cholesky,
 or the host oracle, retrying a non-finite step with escalating damping.
 Both run float64 on both devices (config.incremental_dtype).
+``native=True`` gives the delegate FastL the C++ engine (on the CPU;
+solvers/native_engine.py); a replay that would take the own path raises.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from slam_plus_plus_tpu_torch.linalg.schur import SchurSolver
 from slam_plus_plus_tpu_torch.models.types import VERTEX_TYPES
 from slam_plus_plus_tpu_torch.solvers.fastl import FastLSolver, replay_steps
 from slam_plus_plus_tpu_torch.solvers.lm import damp_system
+from slam_plus_plus_tpu_torch.solvers.native_engine import UnsupportedReplay
 
 #: scalar dims up to which the own path takes the dense direct factor.  The
 #: JAX package picks 20000 on a TPU and 6000 elsewhere; the port takes 6000
@@ -74,12 +77,13 @@ class IncrementalSolver:
 
     def __init__(self, system: GraphSystem, *, device, every_n: int = 1,
                  max_iterations: int = 10, dx_threshold: float = 20.0,
-                 settings: Optional[SolverSettings] = None, on_step=None):
+                 settings: Optional[SolverSettings] = None, on_step=None,
+                 native: bool = False):
         """The reference lambda solver's incremental policy: a solve only
         when a loop closure is pending at an every-N boundary,
         Optimize(max_iterations, dx_threshold).  on_step(solver, step
         index, states) runs after every step of run(); it takes the own
-        path."""
+        path.  native: the delegate FastL runs the C++ engine."""
         if not system.edge_stores:
             raise ValueError("cannot replay an empty system (no edges)")
         t0 = time.perf_counter()
@@ -93,10 +97,15 @@ class IncrementalSolver:
 
         dtype = incremental_dtype(device)
         self._delegate = None
-        if every_n and on_step is None and takes_fastl(system, self.settings):
+        delegates = every_n and on_step is None and takes_fastl(system, self.settings)
+        if native and not delegates:
+            raise UnsupportedReplay("the C++ engine serves the maintained-factor replay only: "
+                                    "blocks at most 6 wide, no per-step callback, no host "
+                                    "oracle")
+        if delegates:
             self._delegate = FastLSolver(
                 system, device=device, every_n=every_n, max_iterations=max_iterations,
-                dx_threshold=dx_threshold, onetime_dx=False, dtype=dtype)
+                dx_threshold=dx_threshold, onetime_dx=False, dtype=dtype, native=native)
             self.asm = self._delegate.asm
             self.steps = self._delegate.steps
             self.timing = self._delegate.timing

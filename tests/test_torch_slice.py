@@ -135,9 +135,10 @@ def test_cli_without_card_fails(ba_file, capsys):
 
 #: every module of the port, all imported by the walk below
 PORT_MODULES = (
-    "app.dataassoc_example", "app.incremental_ba", "app.main", "assembly.assembler", "config",
-    "evaluation.distances", "evaluation.error_eval",
-    "graph.system", "io.acceptance", "io.datasets", "io.parser", "linalg.block_cholesky",
+    "app.ba_optimizer", "app.block_unit", "app.dataassoc_example", "app.incremental_ba",
+    "app.main", "assembly.assembler", "config", "evaluation.distances", "evaluation.error_eval",
+    "graph.system", "io.acceptance", "io.datasets", "io.native_parser", "io.parser",
+    "linalg.block_cholesky", "linalg.block_matrix",
     "linalg.bsr", "linalg.dense", "linalg.host_solver", "linalg.incremental_cholesky",
     "linalg.schur", "linalg.spmv", "marginals.covariance",
     "manifolds.camera", "manifolds.se2", "manifolds.se3", "manifolds.sim3", "manifolds.so3",
@@ -145,7 +146,7 @@ PORT_MODULES = (
     "models.sim3_types", "models.types", "ops.p2c", "ops.panel", "ops.planar", "robust.losses",
     "solvers.a_solver", "solvers.dogleg", "solvers.dogleg_incremental", "solvers.fastl",
     "solvers.fastl_online", "solvers.gauss_newton", "solvers.incremental", "solvers.lm",
-    "solvers.spcg")
+    "solvers.native_engine", "solvers.spcg", "utils.memusage")
 
 
 def test_port_never_imports_jax():
