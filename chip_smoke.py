@@ -47,9 +47,9 @@ it never falls back to the CPU.  Phases, each of which must pass:
      paths on the card (float32) against the CPU's solve of the same float32
      lambda (1e-4 x scale) and the CPU float64 solve (2e-3 x scale: the JAX
      package's float32 bottom ridge); (b) small intrinsics, stereo and
-     spheron files through LM and a stereo file through -dl (-mfnsi 30), by
-     the CLI's code path, final chi2 within 1e-4 of the CPU float64 run, and
-     a mono BA file through -dl printed as a recorded float32 miss; (c) the
+     spheron files through LM (float32) and a stereo (-mfnsi 30) and a mono
+     BA file through -dl (float64, config.float64_dtype), by the CLI's code
+     path, final chi2 within 1e-4 of the CPU float64 run; (c) the
      venice-real row (871 cameras, 100,000 points, 800,000 observations,
      io/acceptance.py) through the CLI's code path: the sparse-reduced Schur
      with its clique path, LM's 5 iterations gated at chi2 <= 1.05 x the
@@ -75,7 +75,7 @@ it never falls back to the CPU.  Phases, each of which must pass:
      1e-3 wander at the optimum); K1 and K2 launched 0 times;
  10. incremental solving (no Pallas kernel lies on this path either), in
      float64, the incremental engine's dtype on the card
-     (config.incremental_dtype): (a) a small manhattan -nsp 1 -fL replay by
+     (config.float64_dtype): (a) a small manhattan -nsp 1 -fL replay by
      the float32 engine (dtype=torch.float32) on the card: the maintained
      factor's flat stores after the first dirty step within 1e-4 x scale of
      the same step on the CPU from the same float32 inputs, their DUMMY rows
@@ -159,8 +159,35 @@ it never falls back to the CPU.  Phases, each of which must pass:
      API built, native/ba_c_test.c linked against it with gcc and run with
      SLAMPP_DEVICE unset: exit 0 and "C API OK"; (e) -rmut returns 0 and
      -rmb synthetic factor prints its sheet, on the card; (f) one CLI run's
-     -v memory line with the card's peak.
-     Phase 10's to phase 13's and the whole smoke's wall times are
+     -v memory line with the card's peak;
+ 14. the host tools and the two example apps, on the card: (a)
+     linalg/eigen.py's sym_eigs(k=6, "LM") on the bench scene's lambda,
+     assembled in float64 through K1 (24,600 dims, the port's own LOBPCG
+     over LambdaSpmv): every Ritz pair's residual |lambda v - w v| / |w|
+     <= 1e-4 and the top eigenvalue within 1e-4 of a float64 power
+     iteration over the same operator, ms per LOBPCG iteration,
+     torch_cost of one operator call; (b) condition_estimate on manhattan
+     300 (seed 3, loop 0.3), float64: the dense route and the block
+     Cholesky route (_DENSE_LIMIT lowered) within 5%, then the block
+     Cholesky route on city10k (30,000 dims): finite and > 10, with its
+     seconds; (c) nested_schur_analysis of venice-real's structure: level
+     0 eliminates its 100,000 points, the levels printed; (d)
+     save_matrix_market of city10k's float64 lambda from the card: the
+     file read back by scipy equals the card's blocks exactly; (e)
+     geometry/polynomial.py on 2^20 random quadratics, cubics and quartics
+     on the card against the CPU in float64 (polished roots within 1e-9
+     x scale x kappa, raw roots past that bound in no more than 2 x the
+     CPU's lanes + 16, equal root counts, ms per batch) and average_structure of 10,000
+     noisy observations of a 100-point structure against the CPU (1e-10);
+     (f) app/ba_parameter_acra.py's run_comparison() at its defaults and
+     app/poly_fitting.py's fit on the example's data, on the card against
+     the CPU (float64 both: rows within 1e-6 relative, coefficients within
+     1e-8), gated as the JAX tests gate them; (g) utils/flops.py's
+     assembly and Schur FLOP counts at the bench scene beside phase 4's
+     stage times (GFLOP/s per stage), and a StageTimer(device=cuda) dump of
+     the phase's parts; K1 launched during the phase (its count joins K1's
+     JSON entry), K2 not.
+     Phase 10's to phase 14's and the whole smoke's wall times are
      printed.
 
 The last two lines are a JSON object describing each kernel and the result
@@ -236,7 +263,7 @@ def main() -> int:
     small_scene_check(torch, dev)
 
     # ---- 4. main path at full size -----------------------------------------
-    step, states0, panels_stage = main_path(torch, dev, card, (k1, k2))
+    step, states0, panels_stage, stage_split = main_path(torch, dev, card, (k1, k2))
 
     # ---- 6. where the device time of a step goes ----------------------------
     profile_steps(torch, step, states0)
@@ -279,6 +306,13 @@ def main() -> int:
     native_phase(torch, dev, card, (k1, k2), phase10)
     print(f"phase 13 (the C++ reader and engine, the BA facade and its C API, -rmut / -rmb "
           f"/ -v): {time.perf_counter() - t0:.1f} s wall")
+
+    # ---- 14. the host tools and the two example apps ------------------------
+    t0 = time.perf_counter()
+    tools_phase(torch, dev, card, (k1, k2), stage_split)
+    print(f"phase 14 (eigensolver, condition estimate, nested Schur, MatrixMarket, "
+          f"polynomials, structure average, the apps, FLOP counts): "
+          f"{time.perf_counter() - t0:.1f} s wall")
     print(f"the whole smoke: {time.perf_counter() - T_START:.1f} s wall")
 
     print(f"card: {card}")
@@ -643,7 +677,7 @@ def main_path(torch, dev, card, kernels):
         check(n > 0, f"{k['name']} was not launched on the main path")
         k["launches"] = n
     bs = assemble_damped(states0)
-    return step, states0, lambda: schur._uniform_panels(bs)
+    return step, states0, lambda: schur._uniform_panels(bs), split
 
 
 def profile_steps(torch, step, states0, n_steps=TIMED_STEPS, what="steps"):
@@ -1017,16 +1051,14 @@ def sparse_schur_check(torch, dev):
 
 
 def ba_family_rows(torch, dev):
-    """Small intrinsics, stereo and spheron files through LM, and a stereo
-    file through -dl, by the CLI's code path on the card (float32) and on
-    the CPU (float64): final chi2 within 1e-4 relative.  A mono BA file
-    through -dl is printed beside them: in float32 its undamped GN step is
-    not finite (the reference frame fixes no scale) and the dogleg takes
-    clipped Cauchy steps (ROADMAP.md Queue 3); it must end finite and below
-    its start."""
+    """Small intrinsics, stereo and spheron files through LM (float32 on
+    the card), and a stereo and a mono BA file through -dl (float64 on the
+    card, config.float64_dtype), by the CLI's code path on the card and on
+    the CPU (float64): final chi2 within 1e-4 relative.  The dogleg's
+    undamped GN step in float32 is not finite on mono BA and a draw on the
+    stereo file (ROADMAP.md Queue 3), so its card path runs float64."""
     from slam_plus_plus_tpu_torch.app import main as cli
     from slam_plus_plus_tpu_torch.io import datasets as D
-    from slam_plus_plus_tpu_torch.io.parser import parse_g2o
 
     d = _scene_dir()
     cams, pts, obs = D.make_ba_scene(n_cams=8, n_points=150, seed=30)
@@ -1047,23 +1079,20 @@ def ba_family_rows(torch, dev):
                 ["-i", files[name], "--device", device, "-s", "-dx", ""] + flags)
             out[device] = cli.run(args)
         (want, wit, _), (got, git, solver) = out["cpu"], out[dev.type]
-        check(solver.asm.dtype == torch.float32, f"{name}: the card path runs float32")
+        dl = "-dl" in flags
+        dt = torch.float64 if dl else torch.float32
+        check(solver.asm.dtype == dt, f"{name} {flags}: the card path runs {dt}")
         err = abs(got - want) / want
         label = f"{name} {' '.join(flags) or 'LM'}"
         check(np.isfinite(got), f"{label}: chi2 {got}")
-        if name == "mono":
-            start = float(solver.asm.chi2(solver.asm.snapshot_states(parse_g2o(files[name]))))
-            check(got < start, f"{label}: chi2 {got} not below its start")
-            verdict = f"a recorded float32 miss (ROADMAP.md Queue 3), below its start {start:.2f}"
-        else:
-            check(err <= 1e-4, f"{label}: card {got} vs CPU {want}, {err:.3e} relative")
-            verdict = "tol 1e-4"
+        check(err <= 1e-4, f"{label}: card {got} vs CPU {want}, {err:.3e} relative")
+        verdict = "tol 1e-4"
         if name == "intrinsics":
             check(got <= 1.05 * INTRINSICS_GOLDEN,
                   f"intrinsics: chi2 {got:.2f} > 1.05 x {INTRINSICS_GOLDEN}")
             verdict += f"; <= 1.05 x the reference's {INTRINSICS_GOLDEN}"
         print(f"BA family {label} ({solver.system.num_vertices} vertices, "
-              f"{solver.system.num_edges} edges): card float32 chi2 {got:.6f} in {git} "
+              f"{solver.system.num_edges} edges): card {str(dt)[6:]} chi2 {got:.6f} in {git} "
               f"iterations vs CPU float64 {want:.6f} in {wit}, relative {err:.3e} ({verdict})")
 
 
@@ -2116,12 +2145,12 @@ def iba_small_check(torch, dev):
         return s, s.run([m - 1 for m in markers])[1]
 
     (s, trace), (cpu, ctrace) = replay(dev), replay("cpu")
-    engine_dtype = DI.incremental_dtype
-    DI.incremental_dtype = lambda _d: torch.float32
+    engine_dtype = DI.float64_dtype
+    DI.float64_dtype = lambda _d: torch.float32
     try:
         s32, trace32 = replay(dev)
     finally:
-        DI.incremental_dtype = engine_dtype
+        DI.float64_dtype = engine_dtype
     check(s.asm.dtype == torch.float64 and s.asm.device.type == torch.device(dev).type
           and s32.asm.dtype == torch.float32,
           "small incremental BA: the card's engine runs float64 (the control float32)")
@@ -2652,6 +2681,382 @@ def native_phase(torch, dev, card, kernels, phase10):
     c_api_check(card)
     matrix_flags_check(dev, card)
     verbose_memory_check(torch, dev)
+
+
+# ---- phase 14: the host tools and the two example apps ------------------------
+
+EIG_K, EIG_MAX_ITERS, EIG_TOL = 6, 200, 1e-4     # the JAX test's tolerance for LOBPCG
+POWER_ITERS = 1000
+COND_SCENE = dict(n_poses=300, seed=3, loop_prob=0.3)     # the JAX test's graph
+POLY_BATCH = 1 << 20
+POLY_TOL = 1e-9
+POLISH_ITERS = 6
+RAW_MISS_FACTOR, RAW_MISS_SLACK = 2, 16
+STRUCT_OBS, STRUCT_POINTS, STRUCT_TOL = 10000, 100, 1e-10
+ACRA_TOL, FIT_TOL = 1e-6, 1e-8
+VENICE_POINTS = 100000
+
+
+def eigen_check(torch, dev, timer):
+    """(a): the bench scene's float64 lambda on the card (K1), its top
+    EIG_K eigenpairs by the port's LOBPCG, each pair's residual and the top
+    eigenvalue against a power iteration.  Returns the assembler."""
+    from slam_plus_plus_tpu_torch.assembly.assembler import Assembler
+    from slam_plus_plus_tpu_torch.io.native_parser import parse_g2o_fast
+    from slam_plus_plus_tpu_torch.linalg import eigen
+    from slam_plus_plus_tpu_torch.utils.flops import torch_cost
+
+    path = os.path.join(_scene_dir(), f"bench_ba_{N_CAMS}_{N_POINTS}_{SCENE_SEED}.txt")
+    with timer.stage("eig asm"):
+        graph = parse_g2o_fast(path)
+        asm = Assembler(graph, device=dev, dtype=torch.float64)
+        system = asm.assemble(asm.snapshot_states(graph))
+    n = asm.Np * asm.Bp + asm.Nl * asm.Bl
+    check(n > eigen._DENSE_LIMIT and asm.pl_uniform is not None,
+          f"bench lambda: {n} dims, uniform layout {asm.pl_uniform is not None}")
+    iters = []
+    lobpcg = eigen.lobpcg_standard
+
+    def counted(*a, **kw):
+        out = lobpcg(*a, **kw)
+        iters.append(out[2])
+        return out
+
+    eigen.lobpcg_standard = counted
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with timer.stage("sym_eigs"):
+            w, V = eigen.sym_eigs(asm, system, k=EIG_K, which="LM", max_iters=EIG_MAX_ITERS)
+        t_eig = time.perf_counter() - t0
+    finally:
+        eigen.lobpcg_standard = lobpcg
+    op = eigen.lambda_operator(asm, system)
+    Vd = torch.as_tensor(V, device=dev)
+    wd = torch.as_tensor(w, device=dev)
+    resid = (torch.linalg.vector_norm(op(Vd) - Vd * wd[None, :], dim=0) / wd.abs()).cpu().numpy()
+    check(bool(np.all(resid <= EIG_TOL)), f"(a) Ritz residuals {resid} > {EIG_TOL}")
+    with timer.stage("power"):
+        x = torch.as_tensor(np.random.default_rng(2).normal(size=(n, 1)), device=dev)
+        for _ in range(POWER_ITERS):
+            y = op(x)
+            x = y / torch.linalg.vector_norm(y)
+        top = float((x * op(x)).sum())
+    err = abs(top - abs(w[0])) / abs(w[0])
+    check(err <= EIG_TOL, f"(a) top eigenvalue {w[0]} vs power iteration {top}: {err:.3e}")
+    cost = torch_cost(op, Vd)
+    print(f"(a) sym_eigs(k={EIG_K}, 'LM') on the bench lambda ({n} dims, float64, "
+          f"{asm.Kpp} pp / {asm.Kpl} pl blocks): {t_eig:.3f} s, {iters[0]} LOBPCG iterations, "
+          f"{t_eig / max(iters[0], 1) * 1e3:.3f} ms per iteration (with the host's Rayleigh-Ritz "
+          f"reads); eigenvalues {', '.join(f'{v:.6e}' for v in w)}; residual |Lv - wv|/|w| "
+          f"max {resid.max():.3e} (tol {EIG_TOL:g}); power iteration ({POWER_ITERS}) "
+          f"{top:.6e}, {err:.3e} relative (tol {EIG_TOL:g}); torch_cost of one lambda x "
+          f"[{n}, {EIG_K}]: {cost['flops']:.4g} flops")
+    return asm
+
+
+def condition_check(torch, dev, timer):
+    """(b): condition_estimate's dense and block Cholesky routes on the JAX
+    test's manhattan 300 (within 5%), then the block Cholesky route on
+    city10k.  Returns city10k's (assembler, block system)."""
+    from slam_plus_plus_tpu_torch.assembly.assembler import Assembler
+    from slam_plus_plus_tpu_torch.io import datasets as D
+    from slam_plus_plus_tpu_torch.io.parser import parse_g2o
+    from slam_plus_plus_tpu_torch.linalg import eigen
+
+    path = os.path.join(_scene_dir(), "smoke_cond_manhattan300.g2o")
+    poses, edges = D.make_manhattan_2d(**COND_SCENE)
+    D.write_g2o_2d(path, edges, poses)
+    system = parse_g2o(path)
+    asm = Assembler(system, device=dev, dtype=torch.float64)
+    bs = asm.assemble(asm.snapshot_states(system))
+    with timer.stage("cond"):
+        dense = eigen.condition_estimate(asm, bs)
+        limit, eigen._DENSE_LIMIT = eigen._DENSE_LIMIT, 10
+        try:
+            factor = eigen.condition_estimate(asm, bs)
+        finally:
+            eigen._DENSE_LIMIT = limit
+    rel = abs(factor - dense) / dense
+    check(rel < 0.05, f"(b) manhattan 300: factor route {factor:.6e} vs dense {dense:.6e}")
+    system = parse_g2o(pose_dataset("city10k"))
+    asm = Assembler(system, device=dev, dtype=torch.float64)
+    bs = asm.assemble(asm.snapshot_states(system))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with timer.stage("cond 10k"):
+        kappa = eigen.condition_estimate(asm, bs)
+    t_city = time.perf_counter() - t0
+    check(np.isfinite(kappa) and kappa > 10.0, f"(b) city10k condition estimate {kappa}")
+    print(f"(b) condition_estimate, manhattan 300 (900 dims, float64 on the card): dense "
+          f"{dense:.6e}, block Cholesky route {factor:.6e}, {rel:.3e} relative (tol 0.05); "
+          f"city10k ({asm.Np * asm.Bp} dims): {kappa:.6e} in {t_city:.2f} s (the block "
+          f"Cholesky route, its factor and plan included)")
+    return asm, bs
+
+
+def nested_schur_check(dev, timer):
+    """(c): the nested-Schur report of venice-real's structure."""
+    from slam_plus_plus_tpu_torch.assembly.assembler import Assembler
+    from slam_plus_plus_tpu_torch.io import acceptance
+    from slam_plus_plus_tpu_torch.io.native_parser import parse_g2o_fast
+    from slam_plus_plus_tpu_torch.linalg.nested_schur import nested_schur_analysis
+
+    with timer.stage("nested"):
+        system = parse_g2o_fast(acceptance.dataset("venice-real", _scene_dir()))
+        asm = Assembler(system, device=dev)
+        report = nested_schur_analysis(asm)
+    check(report[0]["kind"] == "landmarks" and report[0]["eliminated"] == VENICE_POINTS,
+          f"(c) venice-real level 0: {report[0]}")
+    print("(c) nested_schur_analysis of venice-real: " + "; ".join(
+        f"level {r['level']} {r['kind']}: eliminated {r['eliminated']}, reduced "
+        f"{r['reduced']}" + (f", {r['parts']} parts" if "parts" in r else "") for r in report))
+
+
+def matrix_market_check(torch, asm, bs, timer):
+    """(d): city10k's lambda from the card through save_matrix_market and
+    back through scipy: equal to the card's blocks in float64."""
+    import scipy.io as sio
+    from slam_plus_plus_tpu_torch.linalg.bsr import block_system_to_scipy
+    from slam_plus_plus_tpu_torch.utils.matrix_io import save_matrix_market
+
+    path = os.path.join(_scene_dir(), "smoke_city10k_lambda.mtx")
+    t0 = time.perf_counter()
+    with timer.stage("mtx"):
+        save_matrix_market(path, asm, bs)
+    t_write = time.perf_counter() - t0
+    read = sio.mmread(path, spmatrix=False).tocsr()   # a symmetric file reads back whole
+    want = block_system_to_scipy(asm, bs)
+    diff = abs(read - want).max()
+    check(diff == 0.0 and want.dtype == np.float64, f"(d) MatrixMarket round trip: {diff}")
+    print(f"(d) save_matrix_market of city10k's float64 lambda from the card: "
+          f"{want.nnz} entries, {os.path.getsize(path) / 2**20:.1f} MiB written in "
+          f"{t_write:.2f} s; read back by scipy equal to the card's blocks (max |diff| {diff})")
+    os.remove(path)
+
+
+def _scale_kappa(torch, co, r):
+    """Each root's scale max(1, |r|) and condition number max(1, kappa),
+    kappa = sum_k |c_k| |r|^(n-k) / (max(1, |r|) |p'(r)|) (at a near-double
+    root p' -> 0, and a rounding difference of the two devices moves the
+    root by up to ~sqrt(eps))."""
+    r = torch.nan_to_num(r)
+    n = co.shape[0] - 1
+    p_abs = torch.zeros_like(r)
+    dp = torch.zeros_like(r)
+    for k in range(n + 1):
+        p_abs = p_abs * r.abs() + co[k][:, None].abs()
+        if k < n:
+            dp = dp * r + co[k][:, None] * (n - k)
+    scale = r.abs().clamp_min(1.0)
+    return scale, (p_abs / (scale * dp.abs().clamp_min(1e-300))).clamp_min(1.0)
+
+
+def _roots_agree(torch, name, co, got, want):
+    """Card roots and counts against the CPU's: equal counts, equal NaN
+    padding, and each root within POLY_TOL x max(1, |r|) x max(1, kappa)
+    (_scale_kappa).  Returns (the largest error over its bound, the
+    largest error x scale, kappa at that root, the count of roots with
+    kappa > 1e3)."""
+    (gr, gc), (wr, wc) = got, want
+    gr, gc = gr.cpu(), gc.cpu()
+    check(torch.equal(gc, wc), f"(e) {name}: root counts differ in "
+          f"{int((gc != wc).sum())} of {len(wc)}")
+    check(torch.equal(torch.isnan(gr), torch.isnan(wr)), f"(e) {name}: NaN padding differs")
+    scale, kappa = _scale_kappa(torch, co, wr)
+    ok = ~torch.isnan(wr)
+    err = (gr - wr).abs() / scale
+    ratio = float((err[ok] / (POLY_TOL * kappa[ok])).max())
+    check(ratio <= 1.0, f"(e) {name}: a root {ratio:.3e} x its bound POLY_TOL x kappa from "
+          f"the CPU's")
+    worst = int(torch.argmax(torch.where(ok, err, 0.0).reshape(-1)))
+    return (ratio, float(err.reshape(-1)[worst]), float(kappa.reshape(-1)[worst]),
+            int((ok & (kappa > 1e3)).sum()))
+
+
+def _raw_roots_agree(torch, name, co, got_raw, want_raw, want_p):
+    """The closed forms themselves, before any polish: a raw root misses
+    when it lies more than POLY_TOL x scale x kappa from the CPU's polished
+    root.  The closed forms cancel badly on a few lanes on any device,
+    each far past the bound, so the card's raw roots may miss in no more
+    lanes than RAW_MISS_FACTOR x the CPU's raw roots do, plus
+    RAW_MISS_SLACK.  A wrong cube root or power misses in most lanes of
+    its branch.  Returns (card misses, CPU misses)."""
+    scale, kappa = _scale_kappa(torch, co, want_p)
+    ok = ~torch.isnan(want_p)
+    bound = POLY_TOL * scale * kappa
+
+    def misses(raw):
+        return int((ok & ((raw - want_p).abs() > bound)).sum())
+    n_card, n_cpu = misses(got_raw.cpu()), misses(want_raw)
+    check(n_card <= RAW_MISS_FACTOR * n_cpu + RAW_MISS_SLACK,
+          f"(e) {name}: {n_card} raw card roots miss POLY_TOL x scale x kappa of the CPU's "
+          f"polished root, against {n_cpu} raw CPU roots")
+    return n_card, n_cpu
+
+
+def geometry_check(torch, dev, timer):
+    """(e): the batched closed-form roots and the batched Kabsch average on
+    the card against the same functions on the CPU, float64.  The closed
+    forms (the JAX package's) cancel in Cardano's u + v as p -> 0 and in
+    the quartic's resolvent steps, so a rounding difference moves a raw
+    root far more than its conditioning says, on the CPU as on the card:
+    the roots are compared after POLISH_ITERS Newton steps
+    (polish_roots, as the reference polishes its closed forms), and the
+    raw ones lane by lane against the polished roots, where the card may
+    miss in no more lanes than the CPU does (_raw_roots_agree).  Leading
+    coefficients are kept away from 0 (|a| >= 0.5), as the JAX test's
+    cubics: with a ~1e-6 the closed forms lose the small roots on both
+    devices."""
+    from slam_plus_plus_tpu_torch.geometry import polynomial as P
+    from slam_plus_plus_tpu_torch.geometry.struct_average import average_structure
+
+    rng = np.random.default_rng(SEED)
+    parts = []
+    for name, fn, n_coef in (("quadratic", P.quadratic_roots, 3), ("cubic", P.cubic_roots, 4),
+                             ("quartic", P.quartic_roots, 5)):
+        co = torch.as_tensor(rng.normal(size=(n_coef, POLY_BATCH)))
+        co[0] += torch.sign(co[0]) * 0.5
+        if name == "quartic":       # a quarter from known real roots: four real roots
+            q = POLY_BATCH // 4
+            monic = torch.zeros((q, n_coef), dtype=torch.float64)
+            monic[:, 0] = 1.0
+            for root in torch.as_tensor(rng.normal(size=(n_coef - 1, q)) * 2):
+                monic[:, 1:] = monic[:, 1:] - root[:, None] * monic[:, :-1]   # (x - root)
+            co[:, :q] = monic.T
+        cd = co.to(dev)
+        with timer.stage("poly"):
+            got = fn(*cd)
+            got_p = P.polish_roots(cd.T, got[0], iters=POLISH_ITERS)
+        ms = cuda_ms(torch, lambda: fn(*cd), reps=5, rounds=3)
+        ms_p = cuda_ms(torch, lambda: P.polish_roots(cd.T, got[0], iters=POLISH_ITERS),
+                       reps=5, rounds=3)
+        want = fn(*co)
+        want_p = P.polish_roots(co.T, want[0], iters=POLISH_ITERS)
+        ratio, err, kappa, n_ill = _roots_agree(torch, name, co, (got_p, got[1]),
+                                                (want_p, want[1]))
+        n_miss, n_miss_cpu = _raw_roots_agree(torch, name, co, got[0], want[0], want_p)
+        ok = ~torch.isnan(want[0])
+        sc = want[0][ok].abs().clamp_min(1.0)
+        raw = float(((got[0].cpu()[ok] - want[0][ok]).abs() / sc).max())
+        moved = float(((want_p[ok] - want[0][ok]).abs() / sc).max())
+        counts = torch.bincount(want[1].long(), minlength=n_coef).tolist()
+        parts.append(f"{name} {ms:.3f} ms per batch (+ {ms_p:.3f} ms polish), counts {counts}, "
+                     f"polished roots within {err:.2e} x scale (kappa {kappa:.2e} there), "
+                     f"{n_ill} roots with kappa > 1e3, the largest error / bound {ratio:.2e}; "
+                     f"raw roots within {raw:.2e} x scale of the CPU's, moved by the polish "
+                     f"up to {moved:.2e}, {n_miss} raw card roots past the bound "
+                     f"(CPU {n_miss_cpu})")
+    print(f"(e) polynomial roots, {POLY_BATCH} equations per batch, card against CPU "
+          f"(float64; equal counts, each polished root within {POLY_TOL:g} x scale x max(1, "
+          f"its condition number)): " + "; ".join(parts))
+
+    base = rng.normal(size=(STRUCT_POINTS, 3))
+    a = rng.normal(size=(STRUCT_OBS, 3)) * 0.5
+    th = np.linalg.norm(a, axis=1)[:, None, None]
+    k = a / np.linalg.norm(a, axis=1)[:, None]
+    K = np.zeros((STRUCT_OBS, 3, 3))
+    K[:, 0, 1], K[:, 0, 2], K[:, 1, 2] = -k[:, 2], k[:, 1], -k[:, 0]
+    K = K - K.transpose(0, 2, 1)
+    R = np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * (K @ K)
+    obs = (np.einsum("oij,pj->opi", R, base) + rng.normal(size=(STRUCT_OBS, 1, 3)) * 5
+           + rng.normal(0, 0.01, (STRUCT_OBS, STRUCT_POINTS, 3)))
+    obs_t = torch.as_tensor(obs)
+    od = obs_t.to(dev)
+    with timer.stage("kabsch"):
+        got = average_structure(od)
+    ms = cuda_ms(torch, lambda: average_structure(od), reps=5, rounds=3)
+    want = average_structure(obs_t)
+    err = float((got.cpu() - want).abs().max()) / max(float(want.abs().max()), 1.0)
+    check(err <= STRUCT_TOL, f"(e) average_structure: {err:.3e} x scale > {STRUCT_TOL:g}")
+    print(f"(e) average_structure of {STRUCT_OBS} observations of a {STRUCT_POINTS}-point "
+          f"structure: {ms:.3f} ms on the card, {err:.3e} x scale from the CPU "
+          f"(tol {STRUCT_TOL:g})")
+
+
+def apps_check(torch, dev, timer):
+    """(f): the ACRA study and the curve fit on the card against the CPU."""
+    from slam_plus_plus_tpu_torch.app import ba_parameter_acra as acra
+    from slam_plus_plus_tpu_torch.app import poly_fitting
+
+    out = {}
+    for d in (dev.type, "cpu"):
+        t0 = time.perf_counter()
+        with timer.stage(f"acra {d}"):
+            out[d] = (acra.run_comparison(verbose=d == dev.type, device=d),
+                      time.perf_counter() - t0)
+    (rows, t_card), (ref, t_cpu) = out[dev.type], out["cpu"]
+    check([r["param"] for r in rows] == ["xyz", "invdepth", "invdist"], "(f) acra rows")
+    xyz, inv, dist = rows
+    check(abs(xyz["chi2_init"] - inv["chi2_init"]) < 1e-6 * xyz["chi2_init"],
+          "(f) acra: xyz and invdepth start apart")
+    check(xyz["chi2_final"] < 0.05 * xyz["chi2_init"], f"(f) acra xyz: {xyz}")
+    check(inv["chi2_final"] < 0.05 * inv["chi2_init"], f"(f) acra invdepth: {inv}")
+    check(dist["chi2_final"] < 4.0 * xyz["chi2_final"], f"(f) acra invdist: {dist}")
+    worst = 0.0
+    for g, w in zip(rows, ref):
+        check(g["iters"] == w["iters"], f"(f) acra {g['param']}: iterations {g} vs {w}")
+        for key in ("chi2_init", "chi2_final"):
+            worst = max(worst, abs(g[key] - w[key]) / abs(w[key]))
+    check(worst <= ACRA_TOL, f"(f) acra rows {worst:.3e} relative from the CPU's")
+    print(f"(f) run_comparison() (8 cameras, 120 points, {rows[0]['n_edges']} observations), "
+          f"float64: card {t_card:.2f} s, CPU {t_cpu:.2f} s, rows within {worst:.3e} "
+          f"relative (tol {ACRA_TOL:g}); gates of tests/test_sim3_grid.py met")
+
+    true_c, xs, ys = poly_fitting.demo_data()
+    with timer.stage("fit"):
+        c, chi2 = poly_fitting.fit(xs, ys, device=dev.type)
+    c_cpu, _ = poly_fitting.fit(xs, ys, device="cpu")
+    truth = float(np.abs(c - true_c).max())
+    err = float(np.abs(c - c_cpu).max())
+    check(truth < 0.05 and err <= FIT_TOL, f"(f) fit: {truth:.3e} from the truth, {err:.3e} "
+          f"from the CPU")
+    print(f"(f) poly_fitting.fit (degree {len(c) - 1}, {len(xs)} samples) on the card: chi2 "
+          f"{chi2:.6f}, coefficients {truth:.3e} from the truth (tol 0.05), {err:.3e} from "
+          f"the CPU's (tol {FIT_TOL:g})")
+
+
+def flops_check(asm, stage_split):
+    """(g): analytic FLOP counts of the bench scene beside phase 4's stage
+    times."""
+    from slam_plus_plus_tpu_torch.utils.flops import assembly_flops, schur_flops
+
+    fa, fs = assembly_flops(asm), schur_flops(asm)
+    per_stage = {"assemble": fa["total"], "panels": fs["c_inv"] + fs["w"],
+                 "sc_gemm": fs["sc_gemm"], "cholesky": fs["chol"], "update": fs["backsub"]}
+    print("(g) bench scene FLOPs (utils/flops.py) over phase 4's median stage times: " +
+          ", ".join(f"{k} {f:.4g} in {stage_split[k]:.3f} ms = "
+                    f"{f / (stage_split[k] * 1e-3) / 1e9:.1f} GFLOP/s"
+                    for k, f in per_stage.items()) +
+          f"; Schur total {fs['total']:.4g}, assembly total {fa['total']:.4g}")
+
+
+def tools_phase(torch, dev, card, kernels, stage_split):
+    from slam_plus_plus_tpu_torch.ops.p2c import p2c_edge_terms
+    from slam_plus_plus_tpu_torch.ops.panel import build_panels
+    from slam_plus_plus_tpu_torch.utils.timer import StageTimer
+
+    print(f"phase 14 card: {card}")
+    timer = StageTimer(device=dev)
+    p2c_edge_terms.launches = 0
+    build_panels.launches = 0
+    t0 = time.perf_counter()
+    bench_asm = eigen_check(torch, dev, timer)
+    city_asm, city_bs = condition_check(torch, dev, timer)
+    nested_schur_check(dev, timer)
+    matrix_market_check(torch, city_asm, city_bs, timer)
+    del city_asm, city_bs
+    geometry_check(torch, dev, timer)
+    apps_check(torch, dev, timer)
+    flops_check(bench_asm, stage_split)
+    launches = (p2c_edge_terms.launches, build_panels.launches)
+    check(launches[0] > 0, "phase 14: K1 was not launched")
+    check(launches[1] == 0, f"phase 14: K2 launched {launches[1]} times")
+    kernels[0]["launches_tools"] = launches[0]
+    print(f"launches during phase 14: p2c_edge_terms {launches[0]}, build_panels "
+          f"{launches[1]}")
+    print(f"(g) StageTimer(device=cuda) over phase 14's parts "
+          f"({time.perf_counter() - t0:.1f} s):\n" + timer.dump())
 
 
 if __name__ == "__main__":

@@ -12,7 +12,10 @@ Lambda-LM and the Lambda-DL dogleg), batch pose-graph SLAM (SE(2)/SE(3),
 landmarks, GN over the MIS-Schur block Cholesky), the A and SPCG solvers,
 the host scipy oracle, and the Sim(3) and ROCV families — with the two
 Pallas kernels of the BA path rewritten as CUDA C++ for Hopper
-(``csrc/``).  ROADMAP.md lists what is still to be ported.
+(``csrc/``); the incremental engines, marginal covariances, the native host
+code, and the host tools and example apps (geometry, the eigensolver,
+nested-Schur analysis, matrix I/O, FLOP counts, the stage timer, poly
+fitting and the ACRA study).  ROADMAP.md lists what is still to be ported.
 
 Public API:
     parse_g2o / peek_dataset  — dataset ingestion (g2o dialect)

@@ -29,7 +29,9 @@ slam_plus_plus_tpu/app/main.py, reference src/slam_app/Main.cpp:41).
   -fnset <e>     final-optimization dx threshold       (default 0.01)
   -us            use the Schur complement (accepted; the solvers pick it
                  for landmark problems by themselves, as the JAX CLI's do)
-  -nb            no bitmaps (accepted; the port draws none)
+  -nb            no bitmaps; without it the solution is drawn into
+                 solution.png (app/plot.py, which needs matplotlib and
+                 draws nothing without it, as the JAX CLI's)
   -dx <file>     write the solution (default solution.txt; '' disables)
   -gt <file>     ground truth (g2o vertex lines or a solution file): print
                  ATE and RPE after the solve; --rpe-delta sets RPE's step
@@ -57,7 +59,8 @@ would read and the C++ reader cannot is an error.
 The printed lines match the JAX CLI's: ``initial denormalized chi2 error``
 (with -v, batch), ``done. it took``, ``solver took N iterations``,
 ``denormalized chi2 error``, the ``memory:`` line (-v), the ATE/RPE lines,
-``marginals: mean pose sigma`` and ``solution written to``;
+``marginals: mean pose sigma``, ``solution written to`` and ``plot written
+to``;
 a missing -i or a file with no edges prints the JAX CLI's error and
 returns 1.
 """
@@ -112,7 +115,8 @@ class DatasetError(ValueError):
 def run(args):
     """Parse, solve (incremental: FastL or the incremental lambda solver;
     batch: GN, A, Lambda-LM or Lambda-DL), print the reference CLI's lines,
-    evaluate against -gt, recover -dm's marginals and write -dx.  Returns
+    evaluate against -gt, recover -dm's marginals, write -dx and, unless
+    -nb, draw solution.png.  Returns
     (final chi2, iterations, the solver; with -dm the solver's
     ``marginals_report`` holds marginals_report's result); raises
     DatasetError on a file with no edges, UnsupportedReplay where --native
@@ -187,6 +191,14 @@ def run(args):
         _dump_solution(system, args.solution)
         if not args.silent:
             print(f"solution written to {args.solution}")
+    if not args.no_bitmaps:
+        from slam_plus_plus_tpu_torch.app.plot import plot_system
+        try:
+            out = plot_system(system, "solution.png")
+            if out and not args.silent:
+                print(f"plot written to {out}")
+        except Exception as e:  # plotting is best-effort, like the reference
+            print(f"warning: plot failed: {e}", file=sys.stderr)
     return chi2, iters, solver
 
 

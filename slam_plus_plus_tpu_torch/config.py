@@ -6,13 +6,17 @@ The reference is double precision everywhere.  Policy:
   * on ``cuda``, the batch solvers: float32, as the JAX package on its
     accelerator (``default_dtype``);
   * on ``cuda``, the incremental engine (FastL and the incremental lambda
-    solver, ``incremental_dtype``) and marginal covariances (the CLI's -dm,
-    FastL's in-loop marginals): float64.
+    solver), marginal covariances (the CLI's -dm, FastL's in-loop
+    marginals) and the Lambda-DL dogleg: float64 (``float64_dtype``).
     The card runs float64 natively; float32 misses the trees10k-incr
     golden (the JAX package's own float32 engine does too), float64 hits
     every incremental golden and is no slower on the launch-bound engine,
     and a covariance recovered through the float32 bottom factor would
-    inherit its ridge (PERF.md section 5, ROADMAP.md Queue 3).
+    inherit its ridge (PERF.md section 5, ROADMAP.md Queue 3).  The
+    dogleg's undamped GN step is solved as it stands (a 1e-9 jitter at
+    most), and on BA the reduced camera system it solves reaches kappa
+    3.4e8, past float32's 1/eps: the float32 dogleg stalls on mono BA and
+    is a draw on a small stereo file, in the JAX package too.
 
 Every solver that builds an Assembler takes ``dtype=`` (the JAX package's
 ``SolverConfig.dtype`` override); None takes the policy above.
@@ -76,8 +80,9 @@ def default_dtype(device) -> torch.dtype:
     raise ValueError(f"unsupported device {dev}; use 'cpu' or 'cuda'")
 
 
-def incremental_dtype(device) -> torch.dtype:
-    """float64 on both devices: the incremental engine and marginals."""
+def float64_dtype(device) -> torch.dtype:
+    """float64 on both devices: the incremental engine, marginals and the
+    Lambda-DL dogleg."""
     default_dtype(device)   # rejects an unsupported device
     return torch.float64
 

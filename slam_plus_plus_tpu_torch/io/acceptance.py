@@ -54,7 +54,7 @@ GATE = 1.05
 #: card: label -> (where the miss is recorded, the bound on chi2 / golden
 #: that the recorded readings set, or None where the row is held only below
 #: its starting chi2).  The incremental rows run float64 on the card
-#: (config.incremental_dtype) and meet their gates.
+#: (config.float64_dtype) and meet their gates.
 FLOAT32_MISSES = {"manhattan3500": ("ROADMAP.md Queue 3", None)}
 
 

@@ -60,3 +60,14 @@ def partitioned_to_scipy(pp_rows, pp_cols, pp_blocks, Np, Bp,
     return sp.coo_matrix((np.concatenate(vals),
                           (np.concatenate(rows), np.concatenate(cols))),
                          shape=(n, n)).tocsr()
+
+
+def block_system_to_scipy(asm, bs) -> sp.csr_matrix:
+    """The lambda of an Assembler's BlockSystem as a symmetric scalar CSR on
+    the host: one ``.cpu()`` per block array, then partitioned_to_scipy."""
+    landmarks = bool(asm.Nl)
+    return partitioned_to_scipy(
+        asm.pp_rows, asm.pp_cols, bs.pp_blocks.cpu().numpy(), asm.Np, asm.Bp,
+        asm.pl_rows if landmarks else None, asm.pl_cols if landmarks else None,
+        bs.pl_blocks.cpu().numpy() if landmarks else None,
+        bs.ll_blocks.cpu().numpy() if landmarks else None, asm.Nl, asm.Bl)

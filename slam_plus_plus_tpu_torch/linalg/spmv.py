@@ -7,8 +7,6 @@ from __future__ import annotations
 
 import torch
 
-from slam_plus_plus_tpu_torch.ops import planar
-
 
 class LambdaSpmv:
     """lambda @ [v_p; v_l] for an Assembler's BlockSystem; the index
@@ -26,19 +24,25 @@ class LambdaSpmv:
 
     def __call__(self, bs, v_p, v_l):
         """v_p [Np, Bp], v_l [Nl, Bl] -> (out_p, out_l)."""
+        o_p, o_l = self.columns(bs, v_p[..., None], v_l[..., None])
+        return o_p[..., 0], o_l[..., 0]
+
+    def columns(self, bs, V_p, V_l):
+        """lambda @ [V_p; V_l] for m columns at once: V_p [Np, Bp, m],
+        V_l [Nl, Bl, m] -> (out_p, out_l) of the same shapes."""
         Np, Bp, Nl, Bl = max(self.Np, 1), self.Bp, max(self.Nl, 1), self.Bl
-        # upper blocks: out[row] += H v[col]; mirrored: out[col] += H^T v[row]
-        hv = planar.bmv(bs.pp_blocks, v_p[self.cols], Bp, Bp)
-        out_p = torch.zeros((Np, Bp), dtype=v_p.dtype, device=v_p.device)
-        out_p.index_add_(0, self.rows, hv)
-        htv = planar.bmv_At(bs.pp_blocks, v_p[self.rows], Bp, Bp)
-        out_p.index_add_(0, self.cols, htv * self.off[:, None].to(htv.dtype))
-        out_l = torch.zeros((Nl, Bl), dtype=v_p.dtype, device=v_p.device)
+        m = V_p.shape[2]
+        # upper blocks: out[row] += H V[col]; mirrored: out[col] += H^T V[row]
+        pp = bs.pp_blocks.reshape(-1, Bp, Bp)
+        out_p = torch.zeros((Np, Bp, m), dtype=V_p.dtype, device=V_p.device)
+        out_p.index_add_(0, self.rows, torch.bmm(pp, V_p[self.cols]))
+        out_p.index_add_(0, self.cols, torch.bmm(pp.mT, V_p[self.rows])
+                         * self.off[:, None, None].to(V_p.dtype))
+        out_l = torch.zeros((Nl, Bl, m), dtype=V_p.dtype, device=V_p.device)
         if self.has_pl:
-            out_p.index_add_(0, self.prows,
-                             planar.bmv(bs.pl_blocks, v_l[self.pcols], Bp, Bl))
-            out_l.index_add_(0, self.pcols,
-                             planar.bmv_At(bs.pl_blocks, v_p[self.prows], Bp, Bl))
+            pl = bs.pl_blocks.reshape(-1, Bp, Bl)
+            out_p.index_add_(0, self.prows, torch.bmm(pl, V_l[self.pcols]))
+            out_l.index_add_(0, self.pcols, torch.bmm(pl.mT, V_p[self.prows]))
         if self.Nl:
-            out_l = out_l + planar.bmv(bs.ll_blocks, v_l, Bl, Bl)
+            out_l = out_l + torch.bmm(bs.ll_blocks.reshape(-1, Bl, Bl), V_l)
         return out_p, out_l

@@ -23,6 +23,10 @@ relinearization and the incrementally maintained Schur complement of the
 reference are not ported, as in the JAX package: the batch solver
 relinearizes fully each iteration.  Host syncs per iteration: about ten
 scalar reads (the step norms, dot products and the new chi2).
+
+It runs float64 on both devices (``config.float64_dtype``): its GN step
+solves lambda undamped, and in float32 that step is not finite on mono BA
+and a draw on an ill-conditioned stereo file (ROADMAP.md Queue 3).
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ from typing import Optional
 
 import torch
 
-from slam_plus_plus_tpu_torch.config import SolverSettings
+from slam_plus_plus_tpu_torch.config import SolverSettings, float64_dtype
 from slam_plus_plus_tpu_torch.graph.system import GraphSystem
 from slam_plus_plus_tpu_torch.linalg.spmv import LambdaSpmv
 from slam_plus_plus_tpu_torch.solvers.gauss_newton import GaussNewtonSolver
@@ -51,7 +55,11 @@ def _dot(ap, al, bp, bl) -> float:
 class DoglegSolver(GaussNewtonSolver):
     def __init__(self, system: GraphSystem, *, device,
                  settings: Optional[SolverSettings] = None, dtype=None):
-        super().__init__(system, device=device, settings=settings, dtype=dtype)
+        """dtype: the assembler's (None: ``float64_dtype(device)``, float64
+        on both devices; ``torch.float32`` gives the JAX package's float32
+        dogleg)."""
+        super().__init__(system, device=device, settings=settings,
+                         dtype=dtype or float64_dtype(device))
         self._lambda_mv = LambdaSpmv(self.asm)
 
     def _gn_step(self, bs):

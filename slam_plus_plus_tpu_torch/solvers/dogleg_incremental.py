@@ -38,7 +38,7 @@ one Cholesky per dogleg iteration (only SC is maintained, not a factor).
 Batches are padded to the JAX package's power-of-4 size ladders; a padded
 lane repeats a valid index, contributes zero and writes no snapshot.
 
-The engine runs float64 on both devices (config.incremental_dtype): the
+The engine runs float64 on both devices (config.float64_dtype): the
 maintained SC is a sum of deltas that is never re-assembled, and the solve's
 gauge ridge (1e-9 relative) and landmark damping (1e-8 relative) are below
 float32's resolution.  Host syncs per dogleg iteration: about ten scalar
@@ -55,7 +55,7 @@ import numpy as np
 import torch
 
 from slam_plus_plus_tpu_torch.assembly.assembler import Assembler, BlockSystem
-from slam_plus_plus_tpu_torch.config import SolverSettings, incremental_dtype, pin_precision
+from slam_plus_plus_tpu_torch.config import SolverSettings, float64_dtype, pin_precision
 from slam_plus_plus_tpu_torch.graph.system import GraphSystem
 from slam_plus_plus_tpu_torch.linalg.dense import DenseScatter
 from slam_plus_plus_tpu_torch.linalg.spmv import LambdaSpmv
@@ -126,7 +126,7 @@ class IncrementalDoglegSolver:
         self.delta = INITIAL_TRUST_RADIUS       # where the last marker's loop ended
         self.asm = asm = Assembler(system, device=device,
                                    settings=SolverSettings(edge_layout="flat"),
-                                   dtype=incremental_dtype(device))
+                                   dtype=float64_dtype(device))
         if asm.Nl == 0 or asm.Kpl == 0:
             raise ValueError("IncrementalDoglegSolver targets Schur-split "
                              "BA problems; use DoglegSolver for pose graphs")

@@ -31,7 +31,7 @@ recurrent recovery from the maintained factor, at a solve point without
 one the Woodbury update through it; ``marginals_trace`` logs each
 decision.
 
-The engine runs float64 on both devices (config.incremental_dtype);
+The engine runs float64 on both devices (config.float64_dtype);
 ``dtype=torch.float32`` takes the JAX package's float32 engine with its
 aids.  Host syncs: one read of |dx| per iteration (and, in float32, the
 bottom factor's ridge-ladder status per factorization).  The whole
@@ -54,7 +54,7 @@ import numpy as np
 import torch
 
 from slam_plus_plus_tpu_torch.assembly.assembler import Assembler
-from slam_plus_plus_tpu_torch.config import SolverSettings, incremental_dtype, pin_precision
+from slam_plus_plus_tpu_torch.config import SolverSettings, float64_dtype, pin_precision
 from slam_plus_plus_tpu_torch.graph.system import GraphSystem
 from slam_plus_plus_tpu_torch.linalg.block_cholesky import BlockCholeskySolver
 from slam_plus_plus_tpu_torch.linalg.incremental_cholesky import IncrementalCholesky
@@ -121,7 +121,7 @@ class FastLSolver:
         equals the lambda solver's full Refresh_Lambda: one engine serves
         both solvers.  marginals: maintain the covariance diagonal in the
         loop, from the maintained stores of refresh="dirty".  dtype: None takes
-        ``incremental_dtype(device)``.  native: run the replay by the C++
+        ``float64_dtype(device)``.  native: run the replay by the C++
         engine (raises UnsupportedReplay, naming the reason, where it does
         not serve the replay)."""
         if refresh not in ("dirty", "full"):
@@ -149,7 +149,7 @@ class FastLSolver:
         # elimination takes in its first levels, the reference FastL's
         # uniform treatment of landmark blocks in R
         self.asm = asm = Assembler(system, device=device, settings=SolverSettings(
-            schur_split="off", edge_layout="flat"), dtype=dtype or incremental_dtype(device))
+            schur_split="off", edge_layout="flat"), dtype=dtype or float64_dtype(device))
         assert asm.Nl == 0, "the mixed-class assembler split a class off"
         self.chol = BlockCholeskySolver(asm.pp_rows, asm.pp_cols, asm.Np, asm.Bp,
                                         device=asm.device, bottom=min(asm.Np, BOTTOM))

@@ -30,7 +30,7 @@ IncrementalCholesky.refactor_dirty, _refactor, _solve and
 Assembler.place_vertex.  The engine serves the SE(2) odometry / closure
 edges of a streamed pose graph (``edge_pose2d``, the JAX package's
 default and its only caller's) and runs float64 on both devices
-(config.incremental_dtype, as FastL).
+(config.float64_dtype, as FastL).
 """
 
 from __future__ import annotations

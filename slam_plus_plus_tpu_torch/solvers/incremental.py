@@ -27,7 +27,7 @@ path: each iteration assembles the active prefix
 and solves it by the Schur complement (a split landmark class), the dense
 direct factor (<= DENSE_LIMIT scalar dims), the MIS-Schur block Cholesky,
 or the host oracle, retrying a non-finite step with escalating damping.
-Both run float64 on both devices (config.incremental_dtype).
+Both run float64 on both devices (config.float64_dtype).
 ``native=True`` gives the delegate FastL the C++ engine (on the CPU;
 solvers/native_engine.py); a replay that would take the own path raises.
 """
@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from slam_plus_plus_tpu_torch.assembly.assembler import Assembler
-from slam_plus_plus_tpu_torch.config import SolverSettings, incremental_dtype, pin_precision
+from slam_plus_plus_tpu_torch.config import SolverSettings, float64_dtype, pin_precision
 from slam_plus_plus_tpu_torch.graph.system import GraphSystem
 from slam_plus_plus_tpu_torch.linalg.block_cholesky import BlockCholeskySolver
 from slam_plus_plus_tpu_torch.linalg.dense import solve_dense_spd
@@ -95,7 +95,7 @@ class IncrementalSolver:
         self.dx_threshold = dx_threshold
         self.on_step = on_step
 
-        dtype = incremental_dtype(device)
+        dtype = float64_dtype(device)
         self._delegate = None
         delegates = every_n and on_step is None and takes_fastl(system, self.settings)
         if native and not delegates:

@@ -46,3 +46,27 @@ def test_cli_dogleg(files, capsys):
     for line in want:
         assert line in out
     assert any(ln.startswith("initial denormalized chi2 error:") for ln in out)
+
+
+def test_card_dogleg_runs_float64(files, monkeypatch):
+    """The dogleg's dtype policy: DoglegSolver with no dtype takes
+    config.float64_dtype of its device, float64 on the card (the batch
+    solvers keep float32 there); dtype=torch.float32 still gives the
+    float32 dogleg."""
+    import torch
+    from slam_plus_plus_tpu_torch import config
+    from slam_plus_plus_tpu_torch.solvers import dogleg
+
+    assert config.float64_dtype(torch.device("cuda", 0)) == torch.float64
+    assert config.default_dtype("cuda") == torch.float32
+    seen = []
+    monkeypatch.setattr(dogleg, "float64_dtype",
+                        lambda d: seen.append(str(d)) or torch.float32)
+    assert TDL(tparse(files["manhattan"]), device="cpu").asm.dtype == torch.float32
+    assert seen == ["cpu"]
+    monkeypatch.undo()
+    f32 = TDL(tparse(files["manhattan"]), device="cpu", dtype=torch.float32)
+    assert f32.asm.dtype == torch.float32
+    chi2, _ = f32.optimize(5, 0.01)
+    want, _ = JDL(jparse(files["manhattan"])).optimize(5, 0.01)
+    assert abs(chi2 - want) <= 1e-3 * want

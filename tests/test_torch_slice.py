@@ -135,18 +135,23 @@ def test_cli_without_card_fails(ba_file, capsys):
 
 #: every module of the port, all imported by the walk below
 PORT_MODULES = (
-    "app.ba_optimizer", "app.block_unit", "app.dataassoc_example", "app.incremental_ba",
-    "app.main", "assembly.assembler", "config", "evaluation.distances", "evaluation.error_eval",
+    "app.ba_optimizer", "app.ba_parameter_acra", "app.block_unit", "app.dataassoc_example",
+    "app.incremental_ba", "app.main", "app.plot", "app.poly_fitting", "assembly.assembler",
+    "config", "evaluation.distances", "evaluation.error_eval",
+    "geometry", "geometry.distortion", "geometry.minimal", "geometry.polynomial",
+    "geometry.struct_average", "geometry.triangulate",
     "graph.system", "io.acceptance", "io.datasets", "io.native_parser", "io.parser",
     "linalg.block_cholesky", "linalg.block_matrix",
-    "linalg.bsr", "linalg.dense", "linalg.host_solver", "linalg.incremental_cholesky",
+    "linalg.bsr", "linalg.dense", "linalg.eigen", "linalg.host_solver",
+    "linalg.incremental_cholesky", "linalg.nested_schur",
     "linalg.schur", "linalg.spmv", "marginals.covariance",
     "manifolds.camera", "manifolds.se2", "manifolds.se3", "manifolds.sim3", "manifolds.so3",
     "models.ba_types", "models.rocv_types", "models.se2_types", "models.se3_types",
     "models.sim3_types", "models.types", "ops.p2c", "ops.panel", "ops.planar", "robust.losses",
     "solvers.a_solver", "solvers.dogleg", "solvers.dogleg_incremental", "solvers.fastl",
     "solvers.fastl_online", "solvers.gauss_newton", "solvers.incremental", "solvers.lm",
-    "solvers.native_engine", "solvers.spcg", "utils.memusage")
+    "solvers.native_engine", "solvers.spcg", "utils", "utils.flops", "utils.matrix_io",
+    "utils.memusage", "utils.timer")
 
 
 def test_port_never_imports_jax():
