@@ -29,19 +29,21 @@ it never falls back to the CPU.  Phases, each of which must pass:
   7. pose-graph SLAM (no Pallas kernel lies on this path): a small SE(2) and
      a small SE(3) graph assembled on the card (float32) against the CPU
      float64 path; a small landmark graph solved by GN through the flat
-     Schur branch on the card against the CPU float64 run; the manhattan3500 lambda solved on the card with the
-     block Cholesky and its PCG, gated on the true relative residual; then
-     the acceptance rows manhattan3500, city10k, sphere2500 and trees10k,
-     built with the port's generators at the settings of
-     scripts/acceptance.py, each solved through the CLI's code path and
-     gated at chi2 <= 1.05 x the reference binary's golden
-     (docs/ACCEPTANCE_TPU.md), except that a row of
-     acceptance.FLOAT32_MISSES (float32 GN with the JAX package's settings
-     misses it; recorded in ROADMAP.md Queue 3) is printed against the gate
-     and must end finite and below its starting chi2; per row the iterations, ms per iteration,
-     MIS levels, bottom blocks, PCG iterations, the largest |H - H^T| over
-     lambda's diagonal blocks and the peak device memory; and a
-     torch.profiler trace of two city10k GN iterations;
+     Schur branch on the card (float32, the Schur route's dtype) against
+     the CPU float64 run; the manhattan3500 lambda solved on the card in
+     float32 (dtype=torch.float32) with the block Cholesky and its PCG,
+     gated on the true relative residual; then the acceptance rows
+     manhattan3500, city10k, sphere2500 and trees10k, built with the port's
+     generators at the settings of scripts/acceptance.py, each solved
+     through the CLI's code path in float64 (the pose-graph route's dtype,
+     solvers/gauss_newton.py::route_dtype) and gated at chi2 <= 1.05 x the
+     reference binary's golden (docs/ACCEPTANCE_TPU.md); per row the
+     iterations, ms per iteration, MIS levels, bottom blocks, the largest
+     |H - H^T| over lambda's diagonal blocks and the peak device memory;
+     manhattan3500 once more by GN in float32 as the control (printed
+     against the gate, held finite and below its start: float32 missed it,
+     ROADMAP.md Queue 3 F1); and a torch.profiler trace of two city10k GN
+     iterations;
   8. the rest of batch BA: (a) a small scene forced through the
      sparse-reduced Schur (sparse_reduced_limit=1), its clique and gathered
      paths on the card (float32) against the CPU's solve of the same float32
@@ -59,15 +61,18 @@ it never falls back to the CPU.  Phases, each of which must pass:
      launched during that row and K2 not;
   9. the rest of batch solving (no Pallas kernel lies on this path): small
      Sim(3) chain, inverse-distance Sim(3) BA and ROCV scenes solved on the
-     card (float32) and on the CPU (float64), final chi2 within 1e-3
-     relative; sim3.exp's float32 error across its small-angle
-     threshold; the acceptance rows w100k (100,000 poses: GN, block
-     Cholesky capped at 8 levels, PCG), intel-scale (GN and -A) and garage3d (LM)
-     through the CLI's code path and city10k through the SPCG solver with
-     its spanning-tree preconditioner, each gated at chi2 <= 1.05 x the
-     reference binary's golden as in phase 7, with iterations, ms per
-     iteration, parse and construct seconds and peak device memory, the
-     tree solve's and the CG solve's times; full-size runs of a Sim(3)
+     card (in their route's dtype: float64 for the chain, float32 for the
+     BA and the small ROCV scene, whose landmark class is split off) and on
+     the CPU (float64), final chi2 within 1e-3 relative; sim3.exp's float32
+     error across its small-angle threshold; the acceptance rows w100k
+     (100,000 poses: GN, block Cholesky), intel-scale (GN and -A) and
+     garage3d (LM) through the CLI's code path in float64 and city10k
+     through the SPCG solver (float32) with its spanning-tree
+     preconditioner, each gated at chi2 <= 1.05 x the reference binary's
+     golden as in phase 7, with iterations, ms per iteration, parse and
+     construct seconds and peak device memory, the tree solve's and the CG
+     solve's times; w100k once more by GN in float32 as the control (block
+     Cholesky capped at 8 levels, PCG; held as phase 7's control); full-size runs of a Sim(3)
      inverse-distance BA (100 cameras, 10,000 points, LS and LO edges, LM;
      the median of 5 timed LM trials and a profile of one) and of the
      ROCV scene at 10,000 steps (GN through the CLI's code path), chi2 per
@@ -188,7 +193,31 @@ it never falls back to the CPU.  Phases, each of which must pass:
      the phase's parts; K1 launched during the phase (its count joins K1's
      JSON entry), K2 not.
      Phase 10's to phase 14's and the whole smoke's wall times are
-     printed.
+     printed;
+ 15. parallel/ over torch.distributed, each rank a spawned process on the
+     one card: (a) ShardedBAOptimizer on the bench scene over 2 gloo ranks
+     (float32), 3 damped steps against phase 4's single-process card step
+     (chi2 per step within 1e-5 relative, states within 1e-4 x scale),
+     each rank holding G = 4,000 landmark rows and launching K1 and K2
+     (counters zeroed just before the steps, read just after), with ms per
+     step, each collective's ms and share of the step (CUDA events around
+     it), peak device memory and per_device_bytes(); (b) the same at world
+     size 1 over NCCL; (c) DistributedAssembler + DistributedSchurSolver on
+     the bench scene over the 2 gloo ranks against the single-process card
+     assembly of the same (flat) layout and its step at phase 3's float32
+     tolerances (the uniform K1 assembly's distance printed beside), with
+     ms and collective shares; (d) DistributedBlockCholeskySolver on
+     city10k's and w100k's float64 lambda over the 2 gloo ranks: the
+     relative residual of its solve and of solve_with_factor on its
+     replicated factor (which must repeat the solve bit for bit under
+     deterministic algorithms) <= 1e-10,
+     under torch.use_deterministic_algorithms and with atomic sums, beside
+     the same rank's single-process factor's residual and the forward
+     distance between the two solves (printed, not gated: 1-ulp
+     differences in the ranks' batched products reach 1e-7 through these
+     lambdas), ms per factor of both and the collective shares; (e)
+     two CLI processes joined by --dist-* on the card (NCCL, no
+     collective): each prints its process summary and exits 0.
 
 The last two lines are a JSON object describing each kernel and the result
 line {"ok": true, "device": {...}}.
@@ -313,6 +342,12 @@ def main() -> int:
     print(f"phase 14 (eigensolver, condition estimate, nested Schur, MatrixMarket, "
           f"polynomials, structure average, the apps, FLOP counts): "
           f"{time.perf_counter() - t0:.1f} s wall")
+
+    # ---- 15. parallel/ over torch.distributed -------------------------------
+    t0 = time.perf_counter()
+    parallel_phase(torch, dev, card, (k1, k2), step, states0)
+    print(f"phase 15 (parallel/: sharded BA, distributed assembly, Schur and block "
+          f"Cholesky, the CLI's --dist-*): {time.perf_counter() - t0:.1f} s wall")
     print(f"the whole smoke: {time.perf_counter() - T_START:.1f} s wall")
 
     print(f"card: {card}")
@@ -843,18 +878,20 @@ def small_landmark_check(torch, dev):
 
 
 def manhattan_residual_check(torch, dev):
-    """The manhattan3500 lambda solved on the card (float32) by the block
-    Cholesky and its PCG; the true residual ||b - lambda dx|| / ||b||, taken
-    in float64 on the card, must be <= 1e-4.  Printed beside it, not gated:
-    how far that step lies from the CPU's float64 step at the same point,
-    whose lambda has soft modes float32 cannot resolve."""
+    """The manhattan3500 lambda solved on the card in float32
+    (dtype=torch.float32, the JAX package's float32 path; the default is
+    float64) by the block Cholesky and its PCG; the true residual
+    ||b - lambda dx|| / ||b||, taken in float64 on the card, must be
+    <= 1e-4.  Printed beside it, not gated: how far that step lies from the
+    CPU's float64 step at the same point, whose lambda has soft modes
+    float32 cannot resolve."""
     from slam_plus_plus_tpu_torch.assembly.assembler import BlockSystem
     from slam_plus_plus_tpu_torch.io.parser import parse_g2o
     from slam_plus_plus_tpu_torch.linalg.spmv import LambdaSpmv
     from slam_plus_plus_tpu_torch.solvers.gauss_newton import GaussNewtonSolver
 
     path = pose_dataset("manhattan3500")
-    gn = GaussNewtonSolver(parse_g2o(path), device=dev)
+    gn = GaussNewtonSolver(parse_g2o(path), device=dev, dtype=torch.float32)
     asm = gn.asm
     check(gn._sparse_chol is not None and gn.pcg_iterations > 0,
           "manhattan3500 on the card: not the block Cholesky with PCG")
@@ -898,14 +935,19 @@ def row_gate(label, chi2, golden, start):
             f"MISSES, as float32 with the JAX package's settings does ({recorded}):")
 
 
-def pose_row(torch, dev, card, name, flags, golden):
-    """One acceptance row through the CLI's code path, then its timed steady
-    iterations.  Returns (the solver, its final states, the step function)."""
+def pose_row(torch, dev, card, name, flags, golden, float32_control=False):
+    """One acceptance row through the CLI's code path (float64 on the card,
+    the pose-graph route's dtype), then its timed steady iterations.
+    float32_control: the same GN solve (the CLI's settings) with
+    dtype=torch.float32 instead, not gated beyond finite and below its
+    start (float32 missed the gates: ROADMAP.md Queue 3, F1).  Returns (the
+    solver, its final states, the step function)."""
     from slam_plus_plus_tpu_torch.app import main as cli
     from slam_plus_plus_tpu_torch.io import acceptance
+    from slam_plus_plus_tpu_torch.io.native_parser import parse_g2o_fast
     from slam_plus_plus_tpu_torch.io.parser import parse_g2o
     from slam_plus_plus_tpu_torch.solvers.a_solver import ASolver
-    from slam_plus_plus_tpu_torch.solvers.gauss_newton import PCG_REL_TOL
+    from slam_plus_plus_tpu_torch.solvers.gauss_newton import GaussNewtonSolver, PCG_REL_TOL
 
     path = pose_dataset(name)
     label = f"{name} -A" if "-A" in flags else name
@@ -913,14 +955,32 @@ def pose_row(torch, dev, card, name, flags, golden):
         ["-i", path, "--device", dev.type, "-s", "-dx", ""] + flags)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    chi2, iters, solver = cli.run(args)
+    if float32_control:
+        check(flags == ["-po"], f"{label}: the float32 control runs GN rows only")
+        label += ", float32 control"
+        t1 = time.perf_counter()
+        system = parse_g2o_fast(path)
+        t_parse = time.perf_counter() - t1
+        solver = GaussNewtonSolver(system, device=dev, dtype=torch.float32)
+        solver.timing["parse"] = t_parse
+        chi2, iters = solver.optimize(args.mfnsi, args.fnset)
+    else:
+        chi2, iters, solver = cli.run(args)
     t_cli = time.perf_counter() - t0
     asm = solver.asm
     a_solver = isinstance(solver, ASolver)
-    verdict = row_gate(label, chi2, golden, lambda: (
-        float(asm.chi2(asm.snapshot_states(parse_g2o(path)))) if a_solver
-        else solver.iteration_log[0][0]))
-    check(asm.dtype == torch.float32, f"{label}: the card path runs float32")
+    def start():
+        if a_solver:
+            return float(asm.chi2(asm.snapshot_states(parse_g2o(path))))
+        return solver.iteration_log[0][0]
+
+    if float32_control:
+        check(np.isfinite(chi2) and chi2 < start(), f"{label}: chi2 {chi2}")
+        verdict = "(not gated: finite and below its start) against"
+    else:
+        verdict = row_gate(label, chi2, golden, start)
+    want = torch.float32 if float32_control else torch.float64
+    check(asm.dtype == want, f"{label}: {asm.dtype} on the card, not {want}")
     pcg = [int(t) for t in solver.pcg_taken]
     states = asm.snapshot_states(solver.system)
     lm = "-lm" in flags
@@ -957,9 +1017,10 @@ def pose_row(torch, dev, card, name, flags, golden):
               "schur" if solver._schur is not None else
               "dense" if solver._dense is not None else
               f"block Cholesky, {chol.n_levels} MIS levels, bottom {chol.plan.n_bottom} "
-              f"blocks, PCG stop {PCG_REL_TOL:g}, iterations per solve {pcg}")
+              f"blocks, " + (f"PCG stop {PCG_REL_TOL:g}, iterations per solve {pcg}"
+                             if solver.pcg_iterations else "no PCG"))
     kind = "A" if a_solver else "LM" if lm else "GN"
-    print(f"pose row {label} ({kind}; {solver.system.num_vertices} vertices, "
+    print(f"pose row {label} ({kind}, {str(asm.dtype)[6:]}; {solver.system.num_vertices} vertices, "
           f"{solver.system.num_edges} edges; {asm.Np} x {asm.Bp} + {asm.Nl} x {asm.Bl} dims; "
           f"{branch}): chi2 {chi2:.2f} in {iters} iterations {verdict} {acceptance.GATE} x {golden} "
           f"(ratio {chi2 / golden:.4f}); {ms_iter:.2f} ms/iteration steady "
@@ -985,6 +1046,8 @@ def pose_graph_phase(torch, dev, card):
     for name in acceptance.POSE_ROWS:
         flags, golden = acceptance.ROWS[name]
         steps[name] = pose_row(torch, dev, card, name, flags, golden)
+    flags, golden = acceptance.ROWS["manhattan3500"]
+    pose_row(torch, dev, card, "manhattan3500", flags, golden, float32_control=True)
     print(f"launches during the pose-graph rows: p2c_edge_terms {p2c_edge_terms.launches}, "
           f"build_panels {build_panels.launches} (no Pallas kernel lies on this path)")
     _solver, states, step = steps["city10k"]
@@ -1257,7 +1320,7 @@ def small_sim3_rocv_check(torch, dev):
     SMALL_TOL relative."""
     from slam_plus_plus_tpu_torch.app import main as cli
     from slam_plus_plus_tpu_torch.io import datasets as D
-    from slam_plus_plus_tpu_torch.solvers.gauss_newton import GaussNewtonSolver
+    from slam_plus_plus_tpu_torch.solvers.gauss_newton import GaussNewtonSolver, route_dtype
     from slam_plus_plus_tpu_torch.solvers.lm import LevenbergMarquardtSolver
 
     rocv = os.path.join(_scene_dir(), "smoke_rocv_40.g2o")
@@ -1277,13 +1340,14 @@ def small_sim3_rocv_check(torch, dev):
                 chi2, iters = solver.optimize(5)
             runs[d] = (chi2, iters, solver)
         (want, wit, _), (got, git, solver) = runs["cpu"], runs[dev.type]
-        check(solver.asm.dtype == torch.float32, f"{label}: the card path runs float32")
+        route = route_dtype(solver.system, dev, solver.settings)
+        check(solver.asm.dtype == route, f"{label}: {solver.asm.dtype} on the card, not {route}")
         err = abs(got - want) / want
         check(np.isfinite(got) and err <= SMALL_TOL,
               f"{label}: card {got} in {git} iterations, CPU {want} in {wit}")
         print(f"small {label} ({solver.system.num_vertices} vertices, {solver.system.num_edges} "
               f"edges; {solver.asm.Np} x {solver.asm.Bp} + {solver.asm.Nl} x {solver.asm.Bl} dims): "
-              f"card float32 chi2 {got:.6f} in {git} iterations vs CPU float64 {want:.6f} in "
+              f"card {str(route)[6:]} chi2 {got:.6f} in {git} iterations vs CPU float64 {want:.6f} in "
               f"{wit}, relative {err:.3e} (tol {SMALL_TOL:g})")
 
 
@@ -1451,6 +1515,8 @@ def rest_of_batch_phase(torch, dev, card):
     for name in acceptance.REST_ROWS:
         flags, golden = acceptance.ROWS[name]
         pose_row(torch, dev, card, name, flags, golden)
+    flags, golden = acceptance.ROWS["w100k"]
+    pose_row(torch, dev, card, "w100k", flags, golden, float32_control=True)
     flags, golden = acceptance.ROWS["intel-scale"]
     pose_row(torch, dev, card, "intel-scale", ["-A"] + flags, golden)
     spcg_row(torch, dev, card)
@@ -3057,6 +3123,392 @@ def tools_phase(torch, dev, card, kernels, stage_split):
           f"{launches[1]}")
     print(f"(g) StageTimer(device=cuda) over phase 14's parts "
           f"({time.perf_counter() - t0:.1f} s):\n" + timer.dump())
+
+
+# ---- phase 15: parallel/ over torch.distributed ----------------------------
+
+#: ranks of the gloo world; both share cuda:0 (NCCL refuses two ranks on one
+#: card, so the NCCL run is a world of one)
+DIST_RANKS = 2
+#: damped steps held against the single-process card step, then timed steps
+SHARDED_STEPS = 3
+SHARDED_TIMED = 3
+#: repetitions of each timed distributed factor / assembly
+DIST_REPS = 3
+#: the pose rows of (d), float64, and the bound on the relative residual of
+#: their distributed solves.  The forward distance to the single-process
+#: solve is printed, not gated: on the card the ranks' batched 3 x 3
+#: products can round 1 ulp apart from the whole batch's when two ranks
+#: share it, which these lambdas amplify to 1e-9..1e-7 (w100k's own
+#: single-process factors with atomic sums differ by more; PERF.md section 6)
+DIST_CHOL_ROWS = ("city10k", "w100k")
+DIST_CHOL_TOL = 1e-10
+DIST_TIMEOUT_S = 300
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _synced(torch, dev, fn, reps):
+    """(the last result, median host ms) of reps synchronized calls of fn."""
+    times, out = [], None
+    for _ in range(reps):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(torch, dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, statistics.median(times)
+
+
+def _shares(comm, reps, ms):
+    """ms per call of each collective since the last read, and its share of
+    a call of ms."""
+    return {k: (v / reps, v / reps / ms) for k, v in comm.times_ms().items()}
+
+
+def _sharded_rank(torch, dev, bench):
+    """(a) / (b) on one rank: SHARDED_STEPS damped steps of ShardedBAOptimizer
+    from the parsed states with the launch counters zeroed just before,
+    then SHARDED_TIMED timed steps with each collective timed."""
+    from slam_plus_plus_tpu_torch.io.native_parser import parse_g2o_fast
+    from slam_plus_plus_tpu_torch.ops.p2c import p2c_edge_terms
+    from slam_plus_plus_tpu_torch.ops.panel import build_panels
+    from slam_plus_plus_tpu_torch.parallel import ShardedBAOptimizer
+
+    t0 = time.perf_counter()
+    opt = ShardedBAOptimizer(parse_g2o_fast(bench), device=dev)
+    construct_s = time.perf_counter() - t0
+    _sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    p2c_edge_terms.launches = 0
+    build_panels.launches = 0
+    cam, xyz = opt._cam_snapshot(), opt.xyz
+    chis = []
+    for _ in range(SHARDED_STEPS):
+        cam, xyz, chi2 = opt.step(cam, xyz)
+        chis.append(chi2)
+    launches = [p2c_edge_terms.launches, build_panels.launches]
+    arrays = dict(cam=cam["cam"].double().cpu().numpy(), xyz=xyz.double().cpu().numpy(),
+                  locals=opt._l_locals)
+    state = (opt._cam_snapshot(), opt.xyz)
+    opt.step(*state)
+    opt.comm.timing = True
+    opt.comm.times_ms()
+    _out, ms = _synced(torch, dev, lambda: opt.step(*state), SHARDED_TIMED)
+    shares = _shares(opt.comm, SHARDED_TIMED, ms)
+    opt.comm.timing = False
+    return dict(chi2=[float(c) for c in chis], launches=launches, ms_step=ms, shares=shares,
+                peak_gib=(torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda"
+                          else float("nan")),
+                per_device_bytes=opt.per_device_bytes(), G=opt.G, rows=int(opt.xyz.shape[0]),
+                Nl=opt.asm.Nl, construct_s=construct_s), arrays
+
+
+def _dist_schur_rank(torch, dev, bench):
+    """(c) on one rank: DistributedAssembler (flat layout, edges sharded) and
+    DistributedSchurSolver on the bench scene, float32."""
+    from slam_plus_plus_tpu_torch.io.native_parser import parse_g2o_fast
+    from slam_plus_plus_tpu_torch.parallel import DistributedAssembler, DistributedSchurSolver
+    from slam_plus_plus_tpu_torch.solvers.lm import damp_system
+
+    system = parse_g2o_fast(bench)
+    asm = DistributedAssembler(system, device=dev)
+    sch = DistributedSchurSolver(asm)
+    states = asm.snapshot_states(system)
+    asm.comm.timing = sch.comm.timing = True
+    asm.comm.times_ms()
+    bs, ms_asm = _synced(torch, dev, lambda: asm.assemble(states), DIST_REPS)
+    asm_shares = _shares(asm.comm, DIST_REPS, ms_asm)
+    damped = damp_system(bs, bs.max_hdiag * 1e-3, asm.pp_diag_ids_dev)
+    sch.comm.times_ms()
+    (dx_p, dx_l), ms_solve = _synced(torch, dev, lambda: sch.solve(damped), DIST_REPS)
+    solve_shares = _shares(sch.comm, DIST_REPS, ms_solve)
+    arrays = {f: getattr(bs, f).double().cpu().numpy()
+              for f in ("pp_blocks", "ll_blocks", "eta_p", "eta_l", "chi2", "max_hdiag")}
+    arrays.update(dx_p=dx_p.double().cpu().numpy(), dx_l=dx_l.double().cpu().numpy())
+    return dict(ms_assemble=ms_asm, assemble_shares=asm_shares, ms_solve=ms_solve,
+                solve_shares=solve_shares, dtype=str(asm.dtype)[6:]), arrays
+
+
+def _dist_chol_rank(torch, dev, paths):
+    """(d) on one rank: DistributedBlockCholeskySolver on each row's float64
+    lambda against the single-process factor of the same rank: the relative
+    residual ||eta - lambda dx|| / ||eta|| of both solves (solve, and
+    solve_with_factor on a second factor, which under deterministic
+    algorithms must repeat it bit for bit), and the forward distance
+    between the two dx, under
+    torch.use_deterministic_algorithms and with atomic sums; then ms per
+    factor of both, collectives timed."""
+    from slam_plus_plus_tpu_torch.assembly.assembler import Assembler
+    from slam_plus_plus_tpu_torch.io.native_parser import parse_g2o_fast
+    from slam_plus_plus_tpu_torch.linalg.block_cholesky import BlockCholeskySolver
+    from slam_plus_plus_tpu_torch.linalg.spmv import LambdaSpmv
+    from slam_plus_plus_tpu_torch.parallel import DistributedBlockCholeskySolver
+
+    out = {}
+    for name, path in paths.items():
+        system = parse_g2o_fast(path)
+        asm = Assembler(system, device=dev, dtype=torch.float64)
+        bs = asm.assemble(asm.snapshot_states(system))
+        spmv = LambdaSpmv(asm)
+        zl = torch.zeros((max(asm.Nl, 1), asm.Bl), dtype=torch.float64, device=dev)
+
+        def residual(dx):
+            r = bs.eta_p - spmv(bs, dx, zl)[0]
+            return float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(bs.eta_p))
+
+        single = BlockCholeskySolver(asm.pp_rows, asm.pp_cols, asm.Np, asm.Bp, device=dev)
+        distc = DistributedBlockCholeskySolver(asm.pp_rows, asm.pp_cols, asm.Np, asm.Bp,
+                                               device=dev)
+        res = {}
+        for det in (True, False):
+            torch.use_deterministic_algorithms(det)
+            want = single.solve(bs.pp_blocks, bs.eta_p)
+            got = distc.solve(bs.pp_blocks, bs.eta_p)
+            got_f = distc.solve_with_factor(distc.factor(bs.pp_blocks), bs.eta_p)
+            res["deterministic" if det else "atomic"] = dict(
+                residual_single=residual(want), residual_dist=residual(got),
+                residual_dist_f=residual(got_f),
+                forward=float((got - want).abs().max() / want.abs().max()),
+                repeat=float((got_f - got).abs().max()))
+        torch.use_deterministic_algorithms(False)
+        _f, ms_single = _synced(torch, dev, lambda: single.factor(bs.pp_blocks), DIST_REPS)
+        distc.comm.timing = True
+        distc.comm.times_ms()
+        _f, ms_dist = _synced(torch, dev, lambda: distc.factor(bs.pp_blocks), DIST_REPS)
+        shares = _shares(distc.comm, DIST_REPS, ms_dist)
+        distc.comm.timing = False
+        out[name] = dict(res=res, levels=distc.n_levels, bottom=distc.plan.n_bottom,
+                         dims=asm.Np * asm.Bp, ms_factor=ms_dist, ms_single=ms_single,
+                         shares=shares)
+    return out
+
+
+def _dist_rank(rank, world, backend, store, out_dir, tasks, paths):
+    """One spawned rank of phase 15 on cuda:0 (paths["device"]; "cpu" to
+    rehearse): joins the group, runs tasks, writes its results to out_dir.
+    Imports the port only (never JAX)."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    sys.path.insert(0, REPO)
+    import torch
+    import torch.distributed as dist
+    from slam_plus_plus_tpu_torch.config import pin_precision
+    from slam_plus_plus_tpu_torch.parallel import multihost
+
+    pin_precision()
+    dev = torch.device(paths["device"], 0)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    check(multihost.initialize(f"file://{store}", world, rank, backend=backend,
+                               device=dev.type, timeout_s=DIST_TIMEOUT_S),
+          "phase 15: no process group")
+    out = dict(summary=multihost.process_summary())
+    arrays = {}
+    if "sharded" in tasks:
+        out["sharded"], a = _sharded_rank(torch, dev, paths["bench"])
+        arrays.update({f"sharded_{k}": v for k, v in a.items()})
+    if "dist_schur" in tasks:
+        out["dist_schur"], a = _dist_schur_rank(torch, dev, paths["bench"])
+        arrays.update({f"dist_schur_{k}": v for k, v in a.items()})
+    if "dist_chol" in tasks:
+        out["dist_chol"] = _dist_chol_rank(torch, dev, {n: paths[n] for n in DIST_CHOL_ROWS})
+    with open(os.path.join(out_dir, f"{backend}_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    np.savez(os.path.join(out_dir, f"{backend}_rank{rank}.npz"), **arrays)
+    dist.destroy_process_group()
+
+
+def _spawn_world(world, backend, tasks, paths):
+    """Run _dist_rank on world spawned ranks; a rank that fails fails the
+    smoke (torch.multiprocessing ends the others and raises).  Returns each
+    rank's (results, arrays)."""
+    import torch.multiprocessing as mp
+
+    out_dir = os.path.join(_scene_dir(), f"dist_{backend}_{world}")
+    os.makedirs(out_dir, exist_ok=True)
+    store = os.path.join(out_dir, "store")
+    for f in os.listdir(out_dir):
+        os.remove(os.path.join(out_dir, f))
+    mp.start_processes(_dist_rank, args=(world, backend, store, out_dir, tasks, paths),
+                       nprocs=world, join=True, start_method="spawn")
+    res = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"{backend}_rank{r}.json")) as f:
+            res.append((json.load(f), dict(np.load(os.path.join(out_dir,
+                                                                f"{backend}_rank{r}.npz")))))
+    return res
+
+
+def _fmt_shares(shares):
+    return ", ".join(f"{k} {ms:.3f} ms ({sh:.1%})" for k, (ms, sh) in shares.items())
+
+
+def _rel_err(got, want):
+    return float(np.abs(got - want).max()) / max(float(np.abs(want).max()), 1.0)
+
+
+def _check_sharded(label, ranks, ref_chis, ref_states, card, dev):
+    """(a) / (b): each rank's chi2 per step within 1e-5 relative of the
+    single-process card step's, its cameras and the ranks' landmark rows
+    together within 1e-4 x scale of its states, G rows per rank, K1 and K2
+    launched on each rank (on the card: a CPU rehearsal runs the plain
+    versions, which count nothing)."""
+    G = -(-N_POINTS // len(ranks))
+    for r, (res, arr) in enumerate(ranks):
+        s = res["sharded"]
+        chi_err = max(abs(a - b) / b for a, b in zip(s["chi2"], ref_chis))
+        check(chi_err <= 1e-5, f"{label} rank {r}: chi2 {s['chi2']} against {ref_chis}")
+        cam_err = _rel_err(arr["sharded_cam"], ref_states["cam"])
+        check(cam_err <= 1e-4, f"{label} rank {r}: cameras {cam_err:.3e} x scale")
+        check(s["G"] == G and s["rows"] == G, f"{label} rank {r}: {s['rows']} landmark rows, "
+              f"not G = {G}")
+        check(dev.type != "cuda" or all(n > 0 for n in s["launches"]),
+              f"{label} rank {r}: launches {s['launches']}")
+        coll = _fmt_shares(s["shares"])
+        print(f"  {label} rank {r} ({res['summary']}): chi2 per step "
+              + " / ".join(f"{c:.2f}" for c in s["chi2"]) +
+              f", largest relative error {chi_err:.2e} (tol 1e-5), cameras {cam_err:.2e} x scale "
+              f"(tol 1e-4); {s['ms_step']:.3f} ms per step (median of {SHARDED_TIMED}); "
+              f"collectives per step {coll}; K1 {s['launches'][0]} and K2 {s['launches'][1]} "
+              f"launches in {SHARDED_STEPS} steps; {s['rows']} landmark rows of {s['Nl']} (G = "
+              f"{s['G']}); peak device memory {s['peak_gib']:.3f} GiB, per_device_bytes "
+              f"{s['per_device_bytes']}; construct {s['construct_s']:.1f} s; on {card}")
+    xyz = np.concatenate([arr["sharded_xyz"] for _res, arr in ranks])[:N_POINTS]
+    xyz_err = _rel_err(xyz, ref_states["xyz"][ranks[0][1]["sharded_locals"]])
+    check(xyz_err <= 1e-4, f"{label}: landmarks {xyz_err:.3e} x scale")
+    print(f"  {label}: the ranks' landmark rows together within {xyz_err:.2e} x scale of the "
+          f"single-process states (tol 1e-4)")
+
+
+def parallel_phase(torch, dev, card, kernels, step, states0):
+    """Phase 15: parallel/ over torch.distributed on cuda:0, each rank a
+    spawned process."""
+    from slam_plus_plus_tpu_torch.app import main as cli
+    from slam_plus_plus_tpu_torch.assembly.assembler import Assembler
+    from slam_plus_plus_tpu_torch.config import SolverSettings
+    from slam_plus_plus_tpu_torch.io import datasets
+    from slam_plus_plus_tpu_torch.io.native_parser import parse_g2o_fast
+    from slam_plus_plus_tpu_torch.linalg.schur import SchurSolver
+    from slam_plus_plus_tpu_torch.parallel import multihost
+    from slam_plus_plus_tpu_torch.solvers.lm import damp_system
+
+    print(f"phase 15 card: {card}")
+    bench = os.path.join(_scene_dir(), f"bench_ba_{N_CAMS}_{N_POINTS}_{SCENE_SEED}.txt")
+    paths = dict(bench=bench, device=dev.type, **{n: pose_dataset(n) for n in DIST_CHOL_ROWS})
+    # the single-process card step (phase 4's), SHARDED_STEPS times
+    states, ref_chis = states0, []
+    for _ in range(SHARDED_STEPS):
+        states, chi2 = step(states)
+        ref_chis.append(float(chi2))
+    ref_states = {k: v.double().cpu().numpy() for k, v in states.items()}
+
+    t0 = time.perf_counter()
+    gloo = _spawn_world(DIST_RANKS, "gloo", ("sharded", "dist_schur", "dist_chol"), paths)
+    t_gloo = time.perf_counter() - t0
+    print(f"(a) ShardedBAOptimizer on the bench scene, {DIST_RANKS} gloo ranks on one card "
+          f"(float32), against the single-process card step:")
+    _check_sharded("(a) gloo", gloo, ref_chis, ref_states, card, dev)
+    t0 = time.perf_counter()
+    one = multihost.default_backend(dev)
+    nccl = _spawn_world(1, one, ("sharded",), paths)
+    t_nccl = time.perf_counter() - t0
+    print(f"(b) the same at world size 1 over {one}:")
+    _check_sharded(f"(b) {one}", nccl, ref_chis, ref_states, card, dev)
+    for k, i in zip(kernels, range(2)):
+        k["launches_sharded"] = {"gloo ranks": [r["sharded"]["launches"][i] for r, _a in gloo],
+                                 "nccl": nccl[0][0]["sharded"]["launches"][i]}
+
+    # (c) against the single-process card assembly of the same layout (flat:
+    # the generic per-edge kernel), and, printed, the uniform K1 assembly
+    fields = ("pp_blocks", "ll_blocks", "eta_p", "eta_l", "chi2", "max_hdiag")
+    system = parse_g2o_fast(bench)
+    refs = {}
+    for layout in ("flat", "auto"):
+        asm = Assembler(system, device=dev, settings=SolverSettings(edge_layout=layout))
+        bs = asm.assemble(asm.snapshot_states(system))
+        refs[layout] = {f: getattr(bs, f).double().cpu().numpy() for f in fields}
+        if layout == "flat":
+            dx = SchurSolver(asm).solve(damp_system(bs, bs.max_hdiag * 1e-3, asm.pp_diag_ids_dev))
+            refs[layout].update(dx_p=dx[0].double().cpu().numpy(),
+                                dx_l=dx[1].double().cpu().numpy())
+        del asm, bs
+    ref = refs["flat"]
+    print(f"(c) DistributedAssembler + DistributedSchurSolver on the bench scene, {DIST_RANKS} "
+          f"gloo ranks, against the single-process card assembly (flat layout, the same "
+          f"per-edge kernel) and its damped step:")
+    for r, (res, arr) in enumerate(gloo):
+        c = res["dist_schur"]
+        errs = {f: _rel_err(arr[f"dist_schur_{f}"], ref[f]) for f in fields}
+        check(max(errs.values()) <= 1e-4, f"(c) rank {r}: block system {errs}")
+        k1_err = max(_rel_err(arr[f"dist_schur_{f}"], refs["auto"][f]) for f in fields)
+        dx_err = max(float(np.abs(arr[f"dist_schur_{k}"] - ref[k]).max())
+                     / max(float(np.abs(ref[k]).max()), 1e-30) for k in ("dx_p", "dx_l"))
+        check(dx_err <= 1e-2, f"(c) rank {r}: damped step {dx_err:.3e} relative")
+        print(f"  (c) rank {r} ({c['dtype']}): block system max err/scale "
+              f"{max(errs.values()):.3e} (tol 1e-4; against the uniform K1 assembly "
+              f"{k1_err:.3e}, not gated), damped step {dx_err:.3e} relative (tol "
+              f"1e-2); assemble {c['ms_assemble']:.2f} ms (collectives "
+              f"{_fmt_shares(c['assemble_shares'])}), Schur solve {c['ms_solve']:.2f} ms (collectives "
+              f"{_fmt_shares(c['solve_shares'])}); on {card}")
+
+    print(f"(d) DistributedBlockCholeskySolver, float64, {DIST_RANKS} gloo ranks, against the "
+          f"same rank's single-process factor (relative residual ||eta - lambda dx|| / ||eta|| "
+          f"gated at {DIST_CHOL_TOL:g}; the forward distance printed):")
+    for r, (res, _arr) in enumerate(gloo):
+        for name, c in res["dist_chol"].items():
+            for mode, e in c["res"].items():
+                check(max(e["residual_dist"], e["residual_dist_f"]) <= DIST_CHOL_TOL
+                      and (mode == "atomic" or e["repeat"] == 0.0),
+                      f"(d) rank {r} {name} {mode}: {e}")
+            coll = _fmt_shares(c["shares"])
+            det, ato = c["res"]["deterministic"], c["res"]["atomic"]
+            print(f"  (d) rank {r} {name} ({c['dims']} dims, {c['levels']} MIS levels, bottom "
+                  f"{c['bottom']} blocks): residual distributed {det['residual_dist']:.2e} / "
+                  f"single {det['residual_single']:.2e} under deterministic algorithms, "
+                  f"{ato['residual_dist']:.2e} / {ato['residual_single']:.2e} with atomic sums "
+                  f"(tol {DIST_CHOL_TOL:g}); solve_with_factor on the replicated factor repeats "
+                  f"the solve bit for bit under deterministic algorithms ({ato['repeat']:.2e} "
+                  f"apart with atomic sums); forward distance to the single-process dx "
+                  f"{det['forward']:.2e} (deterministic), {ato['forward']:.2e} (atomic); "
+                  f"{c['ms_factor']:.2f} ms per distributed factor (single-process "
+                  f"{c['ms_single']:.2f}), collectives {coll}; on {card}")
+
+    # (e) the CLI's --dist-* on the card: two processes, NCCL (no collective)
+    small = os.path.join(_scene_dir(), "smoke_dist_cli.g2o")
+    datasets.write_g2o_ba(small, *datasets.make_ba_scene(n_cams=6, n_points=60, seed=3))
+    store = os.path.join(_scene_dir(), "dist_cli_store")
+    if os.path.exists(store):
+        os.remove(store)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "slam_plus_plus_tpu_torch.app.main", "-i", small, "--device",
+         dev.type, "-dx", "", "-nb", "--dist-coord", f"file://{store}", "--dist-nprocs", "2",
+         "--dist-procid", str(r)], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=DIST_TIMEOUT_S)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise
+    t_cli = time.perf_counter() - t0
+    chi2, _iters, _s = cli.run(cli.build_argparser().parse_args(
+        ["-i", small, "--device", dev.type, "-s", "-dx", "", "-nb"]))
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0 and f"process {r}/2, backend {one}" in out,
+              f"(e) CLI process {r}: exit {p.returncode}\n{out[-2000:]}")
+        summary = next(ln for ln in out.splitlines() if ln.startswith("process "))
+        final = [ln for ln in out.splitlines() if ln.startswith("denormalized chi2")]
+        print(f"  (e) CLI process {r}: exit 0, '{summary}', '{final[-1] if final else ''}' "
+              f"(single-process {chi2:.2f})")
+    print(f"phase 15 walls: gloo world {t_gloo:.1f} s, NCCL world {t_nccl:.1f} s, CLI pair "
+          f"{t_cli:.1f} s")
 
 
 if __name__ == "__main__":

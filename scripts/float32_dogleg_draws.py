@@ -1,6 +1,6 @@
 """Draws of the float32 dogleg on chip_smoke.py phase 8 (b)'s stereo file.
 
-    python scripts/float32_dogleg_draws.py port cuda N       # the CLI's card path, N runs
+    python scripts/float32_dogleg_draws.py port cuda N       # the CLI's card path (float64), N runs
     python scripts/float32_dogleg_draws.py port cpu N [FIRST] # the port's float32 on the CPU
     JAX_PLATFORMS=cpu python scripts/float32_dogleg_draws.py jax cpu N [FIRST]
     python scripts/float32_dogleg_draws.py cond cpu N [FIRST]   # the first GN step's conditioning
@@ -18,7 +18,10 @@ prints, per draw at the starting states, the condition number of the
 reduced camera system the first GN step solves (with the dogleg's 1e-9 x
 max-diagonal jitter, which every GN solve of this file takes: one point
 has no observation) and the step's camera-part norm in float64, in
-float32, and by a float64 solve of the float32 reduced system.
+float32, and by a float64 solve of the float32 reduced system.  The
+summary line names the dtype of the solvers that ran: the CLI's dogleg
+on the card runs float64 (config.float64_dtype), so `port cuda` draws
+the float64 dogleg.
 """
 
 import collections
@@ -57,28 +60,33 @@ def perturbed(system, k):
 
 
 def run_once(package, device, path, k):
-    """(chi2, iterations, the dogleg's printed trace) of draw k."""
+    """(chi2, iterations, the dogleg's printed trace, the solver's dtype)
+    of draw k."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         if package == "jax":
             import slam_plus_plus_tpu.models  # noqa: F401
             from slam_plus_plus_tpu.io.parser import parse_g2o
             from slam_plus_plus_tpu.solvers.dogleg import DoglegSolver
-            chi2, iters = DoglegSolver(perturbed(parse_g2o(path), k)).optimize(30, verbose=True)
+            solver = DoglegSolver(perturbed(parse_g2o(path), k))
+            chi2, iters = solver.optimize(30, verbose=True)
         elif device == "cuda":
             from slam_plus_plus_tpu_torch.app import main as cli
             args = cli.build_argparser().parse_args(
                 ["-i", path, "--device", "cuda", "-v", "-dx", "", "-dl", "-mfnsi", "30"])
-            chi2, iters, _solver = cli.run(args)
+            chi2, iters, solver = cli.run(args)
         else:
             import torch
 
             from slam_plus_plus_tpu_torch.io.parser import parse_g2o
             from slam_plus_plus_tpu_torch.solvers.dogleg import DoglegSolver
-            chi2, iters = DoglegSolver(perturbed(parse_g2o(path), k), device="cpu",
-                                       dtype=torch.float32).optimize(30, verbose=True)
+            solver = DoglegSolver(perturbed(parse_g2o(path), k), device="cpu",
+                                  dtype=torch.float32)
+            chi2, iters = solver.optimize(30, verbose=True)
     trace = [ln for ln in buf.getvalue().splitlines() if ln.startswith("iter ")]
-    return float(chi2), iters, trace
+    dt = str(solver.asm.dtype)
+    return float(chi2), iters, trace, (dt[6:] if dt.startswith("torch.") else
+                                       np.dtype(solver.asm.dtype).name)
 
 
 def conditioning(path, k):
@@ -121,10 +129,11 @@ def main(argv):
         path = os.path.join(d, "stereo.g2o")
         write_file(path)
         want = float64_chi2(path)
-        its, errs = collections.Counter(), []
+        its, errs, dtypes = collections.Counter(), [], set()
         t0 = time.perf_counter()
         for k in range(first, first + n):
-            chi2, iters, trace = run_once(package, device, path, k)
+            chi2, iters, trace, dtype = run_once(package, device, path, k)
+            dtypes.add(dtype)
             err = abs(chi2 - want) / want
             errs.append(err)
             its[iters] += 1
@@ -132,7 +141,8 @@ def main(argv):
                 print(f"miss, draw {k}: chi2 {chi2:.6f} in {iters} iterations, {err:.3e} relative")
                 print("\n".join("  " + ln for ln in trace), flush=True)
     misses = sum(e > GATE for e in errs)
-    print(f"{package} float32 on {device}: {misses} of {n} draws miss {GATE:g} relative of the "
+    print(f"{package} {', '.join(sorted(dtypes))} on {device}: {misses} of {n} draws miss "
+          f"{GATE:g} relative of the "
           f"float64 {want:.6f}; largest {max(errs):.3e}; iterations "
           f"{dict(sorted(its.items()))}; {time.perf_counter() - t0:.1f} s")
 

@@ -15,7 +15,9 @@ Pallas kernels of the BA path rewritten as CUDA C++ for Hopper
 (``csrc/``); the incremental engines, marginal covariances, the native host
 code, and the host tools and example apps (geometry, the eigensolver,
 nested-Schur analysis, matrix I/O, FLOP counts, the stage timer, poly
-fitting and the ACRA study).  ROADMAP.md lists what is still to be ported.
+fitting and the ACRA study), and distribution over torch.distributed
+(``parallel/``).  ROADMAP.md lists the TPU- and XLA-only code that is not
+ported.
 
 Public API:
     parse_g2o / peek_dataset  — dataset ingestion (g2o dialect)

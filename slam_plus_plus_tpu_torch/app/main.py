@@ -5,6 +5,7 @@ slam_plus_plus_tpu/app/main.py, reference src/slam_app/Main.cpp:41).
         [-nsp N | -lsp N] [-fL] [-mnsi N] [-nset X]
         [-v] [-s] [-mfnsi N] [-fnset X] [-us] [-nb] [-dx FILE] [-gt FILE]
         [--rpe-delta N] [-dm] [-dsi DIR] [--device cuda|cpu] [--native]
+        [--dist-coord HOST:PORT --dist-nprocs N --dist-procid I]
     python -m slam_plus_plus_tpu_torch.app.main -rmut | -rmb NAME TYPE [--device cuda|cpu]
 
   -i <file>      input dataset (g2o dialect: mono, intrinsics, stereo and
@@ -48,9 +49,16 @@ slam_plus_plus_tpu/app/main.py, reference src/slam_app/Main.cpp:41).
   -rmut          the block-matrix unit tests (app/block_unit.py), then exit
   -rmb NAME TYPE the block-matrix benchmark sheet (TYPE: alloc, factor or
                  all), then exit; both run on --device, before any parse
-  --device       cuda (default; float32 batch solvers, float64 incremental
-                 ones) or cpu (float64).  There is no fallback: cuda without
-                 a card is an error.
+  --device       cuda (default; float32 Schur-route batch solvers, float64
+                 pose-graph GN / LM and incremental ones) or cpu (float64).
+                 There is no fallback: cuda without a card is an error.
+  --dist-coord HOST:PORT, --dist-nprocs N, --dist-procid I
+                 join a multi-process run (parallel/multihost.py; the
+                 coordinator may also be a file:// path, and the SLAMPP_COORD
+                 / SLAMPP_NPROCS / SLAMPP_PROC_ID variables stand in for the
+                 flags): NCCL on --device cuda, gloo on cpu; prints the
+                 process summary unless -s.  Each process runs the same
+                 solve, as the JAX CLI's do.
 
 The file is read by the C++ g2o reader (io/native_parser.py), as the
 reference's CLI reads it with its C++ parser; a line the Python parser
@@ -102,6 +110,9 @@ def build_argparser():
     p.add_argument("-dsi", "--dump-each-step", default=None, metavar="DIR")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--native", action="store_true")
+    p.add_argument("--dist-coord", default=None, metavar="HOST:PORT")
+    p.add_argument("--dist-nprocs", type=int, default=None)
+    p.add_argument("--dist-procid", type=int, default=None)
     p.add_argument("-rmut", "--run-matrix-unit-tests", action="store_true")
     p.add_argument("-rmb", "--run-matrix-benchmarks", nargs=2, metavar=("NAME", "TYPE"),
                    default=None)
@@ -276,6 +287,23 @@ def main(argv=None) -> int:
         print("error: --device cuda, but torch sees no CUDA device; "
               "run on a GPU or pass --device cpu", file=sys.stderr)
         return 2
+    from slam_plus_plus_tpu_torch.parallel import multihost
+    # the multi-process runtime (parallel/multihost.py): every process then
+    # runs the same solve, which is not routed through parallel/ (as in the
+    # JAX CLI)
+    if multihost.initialize(args.dist_coord, args.dist_nprocs, args.dist_procid,
+                            device=args.device):
+        if not args.silent:
+            print(multihost.process_summary())
+        try:
+            return _main(args)
+        finally:
+            torch.distributed.destroy_process_group()
+    return _main(args)
+
+
+def _main(args) -> int:
+    """main() past the checks and the process group."""
     # -rmut / -rmb return before any parse (reference src/slam_app/Main.cpp:91-104)
     if args.run_matrix_unit_tests:
         from slam_plus_plus_tpu_torch.app.block_unit import run_unit_tests

@@ -24,11 +24,13 @@ Two numeric paths:
     landmark's observations contiguous, padded with zero-information dummy
     edges) and kernel K1 (ops/p2c.py::p2c_edge_terms); landmark-side
     reductions are reshape-sums, camera-side ones ``index_add_``;
-  * every other problem takes the flat (parse-order) layout and the generic
-    per-edge kernel: forward-mode Jacobians (``torch.func`` jvp, vmapped
-    over the tangent basis) through each vertex's ⊞ (the JAX
-    ``_make_kernel``), with IRLS robust weights and the expectation mode,
-    reduced with ``index_add_``.
+  * every other problem takes the generic per-edge kernel: forward-mode
+    Jacobians (``torch.func`` jvp, vmapped over the tangent basis) through
+    each vertex's ⊞ (the JAX ``_make_kernel``), with IRLS robust weights and
+    the expectation mode, reduced with ``index_add_``, on the flat
+    (parse-order) layout, or under ``edge_layout="uniform"`` on every
+    landmark edge type sorted and padded into ``[Nl, M]`` groups (the JAX
+    package's assembler.py:177-233; the landmark-sharded BA's layout).
 
 The diagonal pp and ll blocks are symmetrized after the reduction, so they
 are exactly symmetric whatever order the reductions summed in (a deep
@@ -131,6 +133,24 @@ def _transpose_perm(B: int) -> List[int]:
     return [i * B + j for j in range(B) for i in range(B)]
 
 
+def type_classes(system: GraphSystem, settings: SolverSettings) -> Dict[str, str]:
+    """Each vertex type's class: "l" where the landmark class is split off
+    for Schur elimination, else "p".  schur_split "auto" splits only while
+    the pose dims stay <= 20000: past that the mixed MIS elimination
+    (landmarks are ideal low-degree candidates) avoids the
+    all-landmarks-first fill."""
+    names = sorted(system.vertex_stores.keys())
+    split = any(VERTEX_TYPES[t].schur_class == "landmark" for t in names)
+    if split and settings.schur_split == "off":
+        split = False
+    elif split and settings.schur_split == "auto":
+        pose_dims = sum(VERTEX_TYPES[t].tangent_dim * system.vertex_stores[t].n
+                        for t in names if VERTEX_TYPES[t].schur_class != "landmark")
+        split = pose_dims <= 20000
+    return {t: "l" if (split and VERTEX_TYPES[t].schur_class == "landmark") else "p"
+            for t in names}
+
+
 class Assembler:
     """Per-graph-structure assembly pipeline on one explicit device.
 
@@ -157,24 +177,7 @@ class Assembler:
             if name not in EDGE_TYPES:
                 raise NotImplementedError(f"edge type {name} is not ported")
         self.type_names = sorted(system.vertex_stores.keys())
-        split = self.settings.schur_split
-        any_landmark = any(
-            VERTEX_TYPES[t].schur_class == "landmark" for t in self.type_names)
-        if any_landmark and split == "off":
-            any_landmark = False  # single mixed class: MIS interleaves
-        elif any_landmark and split == "auto":
-            # split only while the reduced system stays dense-solvable;
-            # otherwise the mixed MIS elimination (landmarks are ideal
-            # low-degree candidates) avoids the all-landmarks-first fill
-            pose_dims = sum(
-                VERTEX_TYPES[t].tangent_dim * system.vertex_stores[t].n
-                for t in self.type_names
-                if VERTEX_TYPES[t].schur_class != "landmark")
-            if pose_dims > 20000:
-                any_landmark = False
-        self.type_class: Dict[str, str] = {
-            t: "l" if (any_landmark and VERTEX_TYPES[t].schur_class == "landmark") else "p"
-            for t in self.type_names}
+        self.type_class: Dict[str, str] = type_classes(system, self.settings)
 
         # class slots in global insertion order (the reference's block
         # ordering within each class)
@@ -220,39 +223,63 @@ class Assembler:
             slot_class = tuple(self.type_class[t] for t in et.vertex_types)
             raw_plans.append([ename, et, store.n, slot_local, slot_cslot, slot_class])
 
-        # ---- uniform per-landmark layout: the K1 path --------------------
-        # Sort + pad edge_p2c's edges into [Nl, M] groups (dummy edges carry
-        # zero information), so every landmark-side reduction is a
-        # reshape-sum and the Schur panels index by landmark.  The JAX
-        # package takes it when padding inflates the edge count by <= 1.5x
-        # (+8192); the port takes it for mono BA only, where K1 and the
-        # uniform Schur solve consume it, unless edge_layout is "flat".
+        # ---- uniform per-landmark layout ---------------------------------
+        # Sort + pad each landmark plan's edges into [Nl, M] groups (dummy
+        # edges carry zero information), so every landmark-side reduction is
+        # a reshape-sum and each landmark's blocks are contiguous.
+        # edge_layout "auto" takes it for a lone edge_p2c plan (mono BA: K1
+        # and the uniform Schur solve consume it) while padding inflates the
+        # edge count by <= 1.5x (+8192), the JAX package's bound; "uniform"
+        # for every plan that observes exactly one landmark, unbounded (the
+        # landmark-sharded BA, parallel/sharded_ba.py); "flat" keeps parse
+        # order.  Dummies take the other slots of the plan's edge 0, so
+        # (landmark, camera) pairs can repeat; the landmark slot is
+        # positional, and so is its gather.
         self.pl_uniform = None
-        self._pad_idx = None
-        if ([rp[0] for rp in raw_plans] == ["edge_p2c"] and self.Nl
-                and raw_plans[0][5] == ("p", "l") and self.settings.edge_layout == "auto"):
-            ename, et, E, slot_local, slot_cslot, slot_class = raw_plans[0]
-            lc = slot_cslot[1]
-            counts = np.bincount(lc, minlength=self.Nl)
-            M = max(int(counts.max()), 1)
-            if self.Nl * M <= 1.5 * E + 8192:
-                starts = np.concatenate([[0], np.cumsum(counts)])
-                order = np.argsort(lc, kind="stable")
-                ranks = np.arange(E) - starts[lc[order]]
-                pad_idx = np.full(self.Nl * M, E, dtype=np.int64)
-                pad_idx[lc[order] * M + ranks] = order
-                self._pad_idx, self.M, self._uniform_counts = pad_idx, M, counts
-                # dummies take the slots of edge 0, so (landmark, camera)
-                # pairs can repeat; the landmark slot is positional
-                raw_plans[0][2] = self.Nl * M
-                raw_plans[0][3] = [np.concatenate([a, a[:1]])[pad_idx] for a in slot_local]
-                raw_plans[0][4] = [np.concatenate([a, a[:1]])[pad_idx] for a in slot_cslot]
-                raw_plans[0][4][1] = np.repeat(np.arange(self.Nl, dtype=np.int64), M)
+        self._pad_maps: Dict[str, np.ndarray] = {}
+        lay = self.settings.edge_layout
+        l_plans = [rp for rp in raw_plans if "l" in rp[5]]
+        if lay == "uniform" and not (self.Nl and all(rp[5].count("l") == 1 for rp in l_plans)):
+            raise ValueError("edge_layout 'uniform' needs a landmark class and every landmark "
+                             "edge type observing exactly one landmark")
+        if lay == "uniform" or (lay == "auto" and [rp[0] for rp in raw_plans] == ["edge_p2c"]
+                                and raw_plans[0][5] == ("p", "l")):
+            counts = {rp[0]: np.bincount(rp[4][rp[5].index("l")], minlength=self.Nl)
+                      for rp in l_plans}
+            Ms = {n: max(int(c.max()), 1) for n, c in counts.items()}
+            E_old = sum(rp[2] for rp in raw_plans)
+            E_new = E_old + sum(self.Nl * Ms[rp[0]] - rp[2] for rp in l_plans)
+            if lay == "uniform" or E_new <= 1.5 * E_old + 8192:
+                self._uniform_counts = counts
+                for rp in l_plans:
+                    ename, et, E, slot_local, slot_cslot, slot_class = rp
+                    lslot, M = slot_class.index("l"), Ms[ename]
+                    lc = slot_cslot[lslot]
+                    starts = np.concatenate([[0], np.cumsum(counts[ename])])
+                    order = np.argsort(lc, kind="stable")
+                    ranks = np.arange(E) - starts[lc[order]]
+                    pad_idx = np.full(self.Nl * M, E, dtype=np.int64)
+                    pad_idx[lc[order] * M + ranks] = order
+                    self._pad_maps[ename] = pad_idx
+                    positional = np.repeat(np.arange(self.Nl, dtype=np.int64), M)
+                    lmap = np.zeros(self.Nl, dtype=np.int64)
+                    for c, (tn, li) in enumerate(l_order):
+                        if tn == et.vertex_types[lslot]:
+                            lmap[c] = li
+                    rp[2] = self.Nl * M
+                    rp[3] = [np.concatenate([a, a[:1]])[pad_idx] for a in slot_local]
+                    rp[4] = [np.concatenate([a, a[:1]])[pad_idx] for a in slot_cslot]
+                    rp[3][lslot], rp[4][lslot] = lmap[positional], positional
+        #: the K1 path: a lone edge_p2c plan in the uniform layout
+        self.k1 = bool(self._pad_maps) and [rp[0] for rp in raw_plans] == ["edge_p2c"]
+        if self.k1:
+            self.M = raw_plans[0][2] // self.Nl
 
         # ---- global pp / pl keys (order defines contribution order) ------
         Np, Nl1 = self.Np, max(self.Nl, 1)
         pp_contrib_keys: List[np.ndarray] = []
         pl_contrib_keys: List[np.ndarray] = []
+        pl_contrib_enames: List[str] = []
         plan_meta = []
         for ename, et, E, slot_local, slot_cslot, slot_class in raw_plans:
             pp_list, pl_list = [], []
@@ -275,6 +302,7 @@ class Assembler:
                         keys = slot_cslot[pa] * Nl1 + slot_cslot[lb]
                         pl_list.append((pa, lb, keys))
                         pl_contrib_keys.append(keys)
+                        pl_contrib_enames.append(ename)
             plan_meta.append((ename, et, E, slot_local, slot_cslot, slot_class,
                               pp_list, pl_list))
 
@@ -282,16 +310,21 @@ class Assembler:
                   else np.zeros(0, dtype=np.int64))
         uniq_pp, inv_pp = np.unique(all_pp, return_inverse=True)
 
-        if self._pad_idx is not None:
+        if self._pad_maps:
             # uniform layout: the padded slots ARE the pl blocks, in
-            # contribution order — no dedup, zero blocks for dummies
-            (keys,) = pl_contrib_keys
-            self.pl_rows = (keys // Nl1).astype(np.int64)
-            self.pl_cols = (keys % Nl1).astype(np.int64)
-            self.Kpl = len(keys)
+            # contribution order — no dedup, zero blocks for dummies; one
+            # channel per pl contribution
+            self.pl_uniform, off = [], 0
+            for keys, ename in zip(pl_contrib_keys, pl_contrib_enames):
+                self.pl_uniform.append(dict(offset=off, M=len(keys) // self.Nl,
+                                            rows=(keys // Nl1).astype(np.int64),
+                                            counts=self._uniform_counts[ename]))
+                off += len(keys)
+            all_pl = np.concatenate(pl_contrib_keys)
+            self.pl_rows = (all_pl // Nl1).astype(np.int64)
+            self.pl_cols = (all_pl % Nl1).astype(np.int64)
+            self.Kpl = off
             inv_pl = np.arange(max(self.Kpl, 1), dtype=np.int64)
-            self.pl_uniform = [dict(offset=0, M=self.M, rows=self.pl_rows,
-                                    counts=self._uniform_counts)]
         else:
             all_pl = (np.concatenate(pl_contrib_keys) if pl_contrib_keys
                       else np.zeros(0, dtype=np.int64))
@@ -358,10 +391,11 @@ class Assembler:
             store = system.edge_stores[plan.name]
             z = store.measurements[:store.n]
             info = store.informations[:store.n]
-            if self._pad_idx is not None:
+            pad_idx = self._pad_maps.get(plan.name)
+            if pad_idx is not None:
                 # dummy edges: zero information, zero measurement
-                z = np.concatenate([z, np.zeros_like(z[:1])])[self._pad_idx]
-                info = np.concatenate([info, np.zeros_like(info[:1])])[self._pad_idx]
+                z = np.concatenate([z, np.zeros_like(z[:1])])[pad_idx]
+                info = np.concatenate([info, np.zeros_like(info[:1])])[pad_idx]
             self.edge_data[plan.name] = dict(
                 z=f(z), info=f(info),
                 slot_local=tuple(i64(x) for x in plan.slot_local),
@@ -371,7 +405,7 @@ class Assembler:
                               for (_a, _b, _s, w) in plan.pp_contribs),
                 pl_seg=tuple(i64(s) for (_a, _b, s) in plan.pl_contribs),
             )
-        if self._pad_idx is not None:
+        if self.k1:
             # K1 takes the [d, E] layout; the landmark slot is positional
             d = self.edge_data["edge_p2c"]
             d["z_t"] = d["z"].T.contiguous()
@@ -389,7 +423,7 @@ class Assembler:
                            for t in self.type_names}
         self._kernels: Dict[str, Callable] = {
             plan.name: self._make_kernel(plan) for plan in self.plans
-            if self._pad_idx is None}
+            if not self.k1}
 
     def _make_kernel(self, plan: _EdgePlan):
         """Per-edge-type kernel over a batch of E edges: the residual, its
@@ -526,7 +560,7 @@ class Assembler:
     def _edge_sums(self, states):
         """Raw reductions (pp, pl, ll, eta_p, eta_l, chi2, max_hdiag), all
         planar."""
-        if self._pad_idx is not None:
+        if self.k1:
             return self._edge_sums_uniform(states)
         return self._edge_sums_flat(states)
 

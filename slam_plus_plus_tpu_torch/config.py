@@ -3,11 +3,15 @@
 The reference is double precision everywhere.  Policy:
 
   * on ``cpu`` (tests, verification): float64 everywhere;
-  * on ``cuda``, the batch solvers: float32, as the JAX package on its
-    accelerator (``default_dtype``);
-  * on ``cuda``, the incremental engine (FastL and the incremental lambda
-    solver), marginal covariances (the CLI's -dm, FastL's in-loop
-    marginals) and the Lambda-DL dogleg: float64 (``float64_dtype``).
+  * on ``cuda``, the batch solvers on the Schur route (BA, Sim(3) BA) and
+    SPCG: float32, as the JAX package on its accelerator
+    (``default_dtype``);
+  * on ``cuda``, GN / LM (and the A solver) on the pose-graph route
+    (solvers/gauss_newton.py::route_dtype), the incremental engine (FastL
+    and the incremental lambda solver), marginal covariances (the CLI's
+    -dm, FastL's in-loop marginals) and the Lambda-DL dogleg: float64
+    (``float64_dtype``).  Float32 pose GN missed manhattan3500's golden
+    on the card (1.13 x); float64 meets every pose golden.
     The card runs float64 natively; float32 misses the trees10k-incr
     golden (the JAX package's own float32 engine does too), float64 hits
     every incremental golden and is no slower on the launch-bound engine,
@@ -54,7 +58,9 @@ class SolverSettings:
 
     schur_split: "auto" splits the landmark class off when the pose dims
     stay <= 20000; "on" always, "off" never.  edge_layout: "auto" lets a
-    mono BA problem take K1's uniform layout, "flat" keeps parse order."""
+    mono BA problem take K1's uniform layout, "uniform" sorts and pads every
+    edge type that observes one landmark into per-landmark groups (the
+    landmark-sharded BA's layout), "flat" keeps parse order."""
 
     linear_solver: str = "auto"
     schur_split: str = "auto"
@@ -66,8 +72,8 @@ class SolverSettings:
                              f"{', '.join(LINEAR_SOLVERS)}")
         if self.schur_split not in ("auto", "on", "off"):
             raise ValueError(f"schur_split {self.schur_split!r}: auto, on or off")
-        if self.edge_layout not in ("auto", "flat"):
-            raise ValueError(f"edge_layout {self.edge_layout!r}: auto or flat")
+        if self.edge_layout not in ("auto", "uniform", "flat"):
+            raise ValueError(f"edge_layout {self.edge_layout!r}: auto, uniform or flat")
 
 
 def default_dtype(device) -> torch.dtype:
@@ -81,8 +87,8 @@ def default_dtype(device) -> torch.dtype:
 
 
 def float64_dtype(device) -> torch.dtype:
-    """float64 on both devices: the incremental engine, marginals and the
-    Lambda-DL dogleg."""
+    """float64 on both devices: pose-graph GN / LM, the incremental engine,
+    marginals and the Lambda-DL dogleg."""
     default_dtype(device)   # rejects an unsupported device
     return torch.float64
 

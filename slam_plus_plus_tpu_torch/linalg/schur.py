@@ -114,7 +114,11 @@ class SchurSolver:
             return
         panel_bytes = 2 * Nl * Bl * self.n_reduced * 4
         self._dense_pp = DenseScatter(asm.pp_rows, asm.pp_cols, Np, Bp, asm.device)
-        self.uniform = asm.pl_uniform is not None and panel_bytes <= UNIFORM_PANEL_BYTES
+        # K2 builds one uniform channel's panels; several channels (the
+        # uniform layout of a mixed or ternary scene) take the flat branch,
+        # which sums the blocks of repeated (camera, landmark) pairs
+        self.uniform = (asm.pl_uniform is not None and len(asm.pl_uniform) == 1
+                        and panel_bytes <= UNIFORM_PANEL_BYTES)
         if not self.uniform:
             self._build_flat()
             return

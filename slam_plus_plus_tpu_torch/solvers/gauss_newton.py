@@ -24,10 +24,16 @@ The linear backend is chosen per structure, as in the JAX package
     solve-quality gate (``sparse_solve``);
   * the host splu oracle (linalg/host_solver.py) only under "scipy".
 
-The float32 settings are the JAX package's defaults: the PCG runs its
-refine_iterations (2) + 10 trips and stops at 1e-4 relative residual.  With them
-float32 GN on the card ends manhattan3500 above 1.05 x the reference's chi2
-(ROADMAP.md Queue 3).
+The dtype follows the route (``route_dtype``): the Schur route keeps
+``default_dtype`` (float32 on the card), and the pose-graph route, the
+block Cholesky, the dense factor or the scipy oracle with no landmark class
+split off, runs ``float64_dtype``.  Float32 pose GN with the JAX package's
+settings ended manhattan3500 at 1.13 x the reference's chi2 on the card
+(lambda's soft modes fall below float32's rounding), float64 meets every
+pose golden, and the pose rows are launch-bound (ROADMAP.md Queue 3).
+``dtype=torch.float32`` keeps the float32 path: its PCG runs the JAX
+package's refine_iterations (2) + 10 trips and stops at 1e-4 relative
+residual, and its block Cholesky is capped at 8 levels.
 
 Host syncs per GN iteration: one read of |dx| and chi2 together, plus, in
 float32 on a block Cholesky (the pose-graph backend or the sparse-reduced
@@ -43,8 +49,9 @@ from typing import Optional
 
 import torch
 
-from slam_plus_plus_tpu_torch.assembly.assembler import Assembler
-from slam_plus_plus_tpu_torch.config import SolverSettings, pin_precision
+from slam_plus_plus_tpu_torch.assembly.assembler import Assembler, type_classes
+from slam_plus_plus_tpu_torch.config import (SolverSettings, default_dtype, float64_dtype,
+                                             pin_precision)
 from slam_plus_plus_tpu_torch.graph.system import GraphSystem
 from slam_plus_plus_tpu_torch.linalg.block_cholesky import BlockCholeskySolver
 from slam_plus_plus_tpu_torch.linalg.dense import DenseScatter, cholesky_solve
@@ -62,6 +69,20 @@ F32_MAX_LEVELS = 8
 PCG_REL_TOL = 1e-4
 #: PCG trip count in float32: the JAX package's refine_iterations (2) + 10
 PCG_ITERATIONS = 12
+
+
+def route_dtype(system: GraphSystem, device, settings: SolverSettings) -> torch.dtype:
+    """The dtype of a GN / LM solve of system on device, decided from its
+    vertex classes before any assembler is built: ``default_dtype`` on the
+    Schur route (a landmark class split off and observed from the poses,
+    any backend but "scipy": BA, Sim(3) BA), ``float64_dtype`` on the
+    pose-graph route (pose graphs, landmark graphs past the split's 20000
+    pose dims, ROCV, and every system under "scipy")."""
+    classes = type_classes(system, settings)
+    schur = settings.linear_solver != "scipy" and any(
+        {classes[t] for t in store.etype.vertex_types} == {"p", "l"}
+        for store in system.edge_stores.values() if store.n)
+    return default_dtype(device) if schur else float64_dtype(device)
 
 
 def sparse_solve(chol: BlockCholeskySolver, spmv: LambdaSpmv, bs, pcg_iters: int):
@@ -120,9 +141,10 @@ def sparse_solve(chol: BlockCholeskySolver, spmv: LambdaSpmv, bs, pcg_iters: int
 class GaussNewtonSolver:
     def __init__(self, system: GraphSystem, *, device,
                  settings: Optional[SolverSettings] = None, dtype=None):
-        """dtype: the assembler's (None: ``default_dtype(device)``)."""
+        """dtype: the assembler's (None: ``route_dtype``)."""
         t0 = time.perf_counter()
-        self._setup(system, device, settings, dtype)
+        self._setup(system, device, settings,
+                    dtype or route_dtype(system, device, settings or SolverSettings()))
         asm = self.asm
         ls = self.settings.linear_solver
         use_schur = asm.Nl > 0 and asm.Kpl > 0 and ls != "scipy"

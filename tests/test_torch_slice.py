@@ -147,7 +147,9 @@ PORT_MODULES = (
     "linalg.schur", "linalg.spmv", "marginals.covariance",
     "manifolds.camera", "manifolds.se2", "manifolds.se3", "manifolds.sim3", "manifolds.so3",
     "models.ba_types", "models.rocv_types", "models.se2_types", "models.se3_types",
-    "models.sim3_types", "models.types", "ops.p2c", "ops.panel", "ops.planar", "robust.losses",
+    "models.sim3_types", "models.types", "ops.p2c", "ops.panel", "ops.planar",
+    "parallel", "parallel.collectives", "parallel.dist", "parallel.dist_cholesky",
+    "parallel.multihost", "parallel.sharded_ba", "robust.losses",
     "solvers.a_solver", "solvers.dogleg", "solvers.dogleg_incremental", "solvers.fastl",
     "solvers.fastl_online", "solvers.gauss_newton", "solvers.incremental", "solvers.lm",
     "solvers.native_engine", "solvers.spcg", "utils", "utils.flops", "utils.matrix_io",
@@ -167,6 +169,21 @@ def test_port_never_imports_jax():
         "           not in sys.modules]\n"
         "assert not missing, missing\n"
         "print('ok')\n")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=repo)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_parallel_never_imports_jax():
+    """Importing slam_plus_plus_tpu_torch.parallel alone (what a spawned
+    rank does) loads neither jax nor the JAX package."""
+    code = ("import sys\n"
+            "import slam_plus_plus_tpu_torch.parallel\n"
+            "bad = sorted(n for n in sys.modules\n"
+            "             if n.split('.')[0] in ('jax', 'jaxlib', 'slam_plus_plus_tpu'))\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=repo)
