@@ -211,13 +211,25 @@ it never falls back to the CPU.  Phases, each of which must pass:
      relative residual of its solve and of solve_with_factor on its
      replicated factor (which must repeat the solve bit for bit under
      deterministic algorithms) <= 1e-10,
-     under torch.use_deterministic_algorithms and with atomic sums, beside
-     the same rank's single-process factor's residual and the forward
-     distance between the two solves (printed, not gated: 1-ulp
-     differences in the ranks' batched products reach 1e-7 through these
-     lambdas), ms per factor of both and the collective shares; (e)
-     two CLI processes joined by --dist-* on the card (NCCL, no
-     collective): each prints its process summary and exits 0.
+     under torch.use_deterministic_algorithms and with the default
+     algorithms, beside the same rank's single-process factor's residual,
+     two single-process solves that must be equal bit for bit under both
+     (the factor's segmented sums, ops/segsum.py) and the forward distance
+     between the single-process and the distributed solve (printed, not
+     gated: 1-ulp differences in the ranks' batched products reach 1e-7
+     through these lambdas), ms per factor of both and the collective
+     shares; (e) two CLI processes joined by --dist-* on the card (NCCL,
+     no collective): each prints its process summary and exits 0;
+ 16. the port's entry points, each in its own process: (a) python -m
+     slam_plus_plus_tpu_torch.bench exits 0 and its last line holds
+     metric "ba_solve_iter", value, unit, vs_baseline, the fastl_m3500_*
+     keys of its C++-engine extra, both kernels' launches in its run and
+     chi2 <= 1.05 x 222855.82; (b) python -m
+     slam_plus_plus_tpu_torch.app.acceptance --rows intel-scale exits 0
+     with passed == total over its two rows; (c) the repeat check of the
+     deterministic sums: intel-scale and manhattan3500 -nsp 1 -fL replayed
+     once more through the acceptance runner's row code must read phase
+     10's chi2 to the bit.
 
 The last two lines are a JSON object describing each kernel and the result
 line {"ok": true, "device": {...}}.
@@ -348,6 +360,11 @@ def main() -> int:
     parallel_phase(torch, dev, card, (k1, k2), step, states0)
     print(f"phase 15 (parallel/: sharded BA, distributed assembly, Schur and block "
           f"Cholesky, the CLI's --dist-*): {time.perf_counter() - t0:.1f} s wall")
+    # ---- 16. the entry points; the deterministic sums repeat ----------------
+    t0 = time.perf_counter()
+    entry_points_phase(torch, dev, card, phase10)
+    print(f"phase 16 (the bench and acceptance entry points, the repeat of the "
+          f"incremental rows): {time.perf_counter() - t0:.1f} s wall")
     print(f"the whole smoke: {time.perf_counter() - T_START:.1f} s wall")
 
     print(f"card: {card}")
@@ -602,30 +619,23 @@ def _scene_dir():
 
 
 def main_path(torch, dev, card, kernels):
+    from slam_plus_plus_tpu_torch import bench
     from slam_plus_plus_tpu_torch.app import main as cli
-    from slam_plus_plus_tpu_torch.assembly.assembler import Assembler
-    from slam_plus_plus_tpu_torch.io import datasets
     from slam_plus_plus_tpu_torch.io.parser import parse_g2o
-    from slam_plus_plus_tpu_torch.linalg.schur import SchurSolver
     from slam_plus_plus_tpu_torch.ops.p2c import p2c_edge_terms
     from slam_plus_plus_tpu_torch.ops.panel import build_panels
-    from slam_plus_plus_tpu_torch.solvers.lm import damp_system
 
     # the bench scene, cached beside the built kernels (bench.py caches it)
-    path = os.path.join(_scene_dir(), f"bench_ba_{N_CAMS}_{N_POINTS}_{SCENE_SEED}.txt")
     t0 = time.perf_counter()
-    if not os.path.exists(path):
-        cams, pts, obs = datasets.make_ba_scene(n_cams=N_CAMS, n_points=N_POINTS,
-                                                seed=SCENE_SEED)
-        datasets.write_g2o_ba(path + ".tmp", cams, pts, obs)
-        os.replace(path + ".tmp", path)
+    path = bench.scene_path()
     t_scene = time.perf_counter() - t0
     t0 = time.perf_counter()
     system = parse_g2o(path)
     t_parse = time.perf_counter() - t0
     t0 = time.perf_counter()
-    asm = Assembler(system, device=dev)
-    schur = SchurSolver(asm)
+    # the port's bench entry point's step (slam_plus_plus_tpu_torch/bench.py)
+    step, states0 = bench.bench_step(system, dev)
+    asm, schur, assemble_damped = step.asm, step.schur, step.assemble_damped
     t_plan = time.perf_counter() - t0
     print(f"bench scene: {system.num_vertices} vertices, {system.num_edges} edges; "
           f"Nl={asm.Nl} M={asm.M} slots={asm.Nl * asm.M} nred={schur.n_reduced}; "
@@ -633,16 +643,6 @@ def main_path(torch, dev, card, kernels):
           f"plan {t_plan:.1f} s")
     check(asm.dtype == torch.float32, "the card path runs float32")
 
-    def assemble_damped(states):
-        bs = asm.assemble(states)
-        return damp_system(bs, bs.max_hdiag * 1e-3, asm.pp_diag_ids_dev)
-
-    def step(states):
-        bs = assemble_damped(states)
-        dx_p, dx_l = schur.solve(bs)
-        return asm.update(states, dx_p, dx_l), bs.chi2
-
-    states0 = asm.snapshot_states(system)
     p2c_edge_terms.launches = 0
     build_panels.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -792,9 +792,6 @@ def profile_panels_stage(torch, panels_stage):
           "the panels stage did not launch K2 exactly once")
 
 
-POSE_STEPS = 3                # timed iterations per row, after one warm-up
-
-
 def pose_dataset(name):
     """The acceptance row's file (io/acceptance.py), cached beside the
     built kernels."""
@@ -803,19 +800,11 @@ def pose_dataset(name):
     return acceptance.dataset(name, _scene_dir())
 
 
-def symmetry_residual(torch, asm, bs):
-    """Largest |H - H^T| over lambda's diagonal blocks (pp and ll)."""
-    d = bs.pp_blocks.index_select(0, asm.pp_diag_ids_dev)
-    worst = float((d - d[:, asm._p_tperm]).abs().max())
-    if asm.Nl:
-        worst = max(worst, float((bs.ll_blocks - bs.ll_blocks[:, asm._l_tperm]).abs().max()))
-    return worst
-
-
 def small_pose_graph_check(torch, dev):
     """A small SE(2) and a small SE(3) graph assembled on the card in
     float32 and on the CPU in float64 (which the tests hold against the JAX
     package), at 1e-4 x scale per field of the block system."""
+    from slam_plus_plus_tpu_torch.app import acceptance as acc
     from slam_plus_plus_tpu_torch.assembly.assembler import Assembler
     from slam_plus_plus_tpu_torch.io import datasets as D
     from slam_plus_plus_tpu_torch.io.parser import parse_g2o
@@ -841,7 +830,7 @@ def small_pose_graph_check(torch, dev):
             err = float((g - w).abs().max()) / max(float(w.abs().max()), 1.0)
             check(err <= 1e-4, f"small {name} graph {field}: {err:.3e} x scale")
             worst = max(worst, err)
-        sym = symmetry_residual(torch, asm, got)
+        sym = acc.symmetry_residual(asm, got)
         check(sym == 0.0, f"small {name} graph: diagonal blocks not symmetric ({sym:.3e})")
         print(f"small {name.upper()} graph ({system.num_vertices} poses, {system.num_edges} "
               f"edges): card float32 vs CPU float64 block system max err/scale "
@@ -914,121 +903,25 @@ def manhattan_residual_check(torch, dev):
 
 
 def row_gate(label, chi2, golden, start):
-    """An acceptance row's gate: chi2 <= GATE x golden, or, for a row of
-    FLOAT32_MISSES, finite and below start() (its starting chi2) and, where
-    the row has one, under its recorded bound x golden.  Returns the
-    verdict to print before the gate."""
-    from slam_plus_plus_tpu_torch.io import acceptance
+    """An acceptance row's gate (app/acceptance.py ``gate``), which must
+    pass; returns the verdict to print before the gate."""
+    from slam_plus_plus_tpu_torch.app import acceptance as acc
 
-    check(np.isfinite(chi2), f"{label}: chi2 {chi2}")
-    bound = acceptance.GATE * golden
-    if label not in acceptance.FLOAT32_MISSES:
-        check(chi2 <= bound, f"{label}: chi2 {chi2:.2f} > {acceptance.GATE} x {golden}")
-        return "<="
-    recorded, miss_bound = acceptance.FLOAT32_MISSES[label]
-    check(chi2 < start(), f"{label}: chi2 {chi2:.2f} not below its starting chi2")
-    if miss_bound is not None:
-        check(chi2 <= miss_bound * golden,
-              f"{label}: chi2 {chi2:.2f} > its recorded float32 bound {miss_bound} x {golden}")
-        recorded += f"; held at {miss_bound} x golden"
-    return ("<=" if chi2 <= bound else
-            f"MISSES, as float32 with the JAX package's settings does ({recorded}):")
+    passed, verdict = acc.gate(label, chi2, golden, start)
+    check(passed, f"{label}: chi2 {chi2:.2f} {verdict} {acc.goldens.GATE} x {golden}")
+    return verdict
 
 
 def pose_row(torch, dev, card, name, flags, golden, float32_control=False):
-    """One acceptance row through the CLI's code path (float64 on the card,
-    the pose-graph route's dtype), then its timed steady iterations.
-    float32_control: the same GN solve (the CLI's settings) with
-    dtype=torch.float32 instead, not gated beyond finite and below its
-    start (float32 missed the gates: ROADMAP.md Queue 3, F1).  Returns (the
-    solver, its final states, the step function)."""
-    from slam_plus_plus_tpu_torch.app import main as cli
-    from slam_plus_plus_tpu_torch.io import acceptance
-    from slam_plus_plus_tpu_torch.io.native_parser import parse_g2o_fast
-    from slam_plus_plus_tpu_torch.io.parser import parse_g2o
-    from slam_plus_plus_tpu_torch.solvers.a_solver import ASolver
-    from slam_plus_plus_tpu_torch.solvers.gauss_newton import GaussNewtonSolver, PCG_REL_TOL
+    """One acceptance row through the acceptance runner's row code
+    (app/acceptance.py ``pose_row``: the CLI's code path, then its timed
+    steady iterations), which must pass.  Returns (the solver, its final
+    states, the step function)."""
+    from slam_plus_plus_tpu_torch.app import acceptance as acc
 
-    path = pose_dataset(name)
-    label = f"{name} -A" if "-A" in flags else name
-    args = cli.build_argparser().parse_args(
-        ["-i", path, "--device", dev.type, "-s", "-dx", ""] + flags)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    if float32_control:
-        check(flags == ["-po"], f"{label}: the float32 control runs GN rows only")
-        label += ", float32 control"
-        t1 = time.perf_counter()
-        system = parse_g2o_fast(path)
-        t_parse = time.perf_counter() - t1
-        solver = GaussNewtonSolver(system, device=dev, dtype=torch.float32)
-        solver.timing["parse"] = t_parse
-        chi2, iters = solver.optimize(args.mfnsi, args.fnset)
-    else:
-        chi2, iters, solver = cli.run(args)
-    t_cli = time.perf_counter() - t0
-    asm = solver.asm
-    a_solver = isinstance(solver, ASolver)
-    def start():
-        if a_solver:
-            return float(asm.chi2(asm.snapshot_states(parse_g2o(path))))
-        return solver.iteration_log[0][0]
-
-    if float32_control:
-        check(np.isfinite(chi2) and chi2 < start(), f"{label}: chi2 {chi2}")
-        verdict = "(not gated: finite and below its start) against"
-    else:
-        verdict = row_gate(label, chi2, golden, start)
-    want = torch.float32 if float32_control else torch.float64
-    check(asm.dtype == want, f"{label}: {asm.dtype} on the card, not {want}")
-    pcg = [int(t) for t in solver.pcg_taken]
-    states = asm.snapshot_states(solver.system)
-    lm = "-lm" in flags
-    base = asm.assemble(states)
-    sym = symmetry_residual(torch, asm, base)
-    alpha = float(base.max_hdiag) * 1e-3
-
-    def step(st):
-        """One GN iteration (assemble, solve, the host read of chi2 and |dx|,
-        update), one A-solver iteration (A on the host, LSQR, update), or
-        one LM trial (damp, solve, update, re-assemble, its host read) from
-        the fixed base."""
-        if a_solver:
-            dx_p, dx_l, _norm = solver._solve_via_A(st)
-            return asm.update(st, dx_p, dx_l), None
-        if lm:
-            new, _sys, n, e, den = solver._trial(st, base, alpha)
-            torch.stack([n, e, den]).tolist()
-            return new, e
-        bs = asm.assemble(st)
-        dx_p, dx_l = solver._solve(bs)
-        torch.stack([bs.chi2, torch.sum(dx_p * dx_p) + torch.sum(dx_l * dx_l)]).tolist()
-        return asm.update(st, dx_p, dx_l), bs.chi2
-
-    step(states)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(POSE_STEPS):
-        step(states)
-    torch.cuda.synchronize()
-    ms_iter = (time.perf_counter() - t0) / POSE_STEPS * 1e3
-    chol = solver._sparse_chol
-    branch = ("A solver: A built on the host, LSQR" if a_solver else
-              "schur" if solver._schur is not None else
-              "dense" if solver._dense is not None else
-              f"block Cholesky, {chol.n_levels} MIS levels, bottom {chol.plan.n_bottom} "
-              f"blocks, " + (f"PCG stop {PCG_REL_TOL:g}, iterations per solve {pcg}"
-                             if solver.pcg_iterations else "no PCG"))
-    kind = "A" if a_solver else "LM" if lm else "GN"
-    print(f"pose row {label} ({kind}, {str(asm.dtype)[6:]}; {solver.system.num_vertices} vertices, "
-          f"{solver.system.num_edges} edges; {asm.Np} x {asm.Bp} + {asm.Nl} x {asm.Bl} dims; "
-          f"{branch}): chi2 {chi2:.2f} in {iters} iterations {verdict} {acceptance.GATE} x {golden} "
-          f"(ratio {chi2 / golden:.4f}); {ms_iter:.2f} ms/iteration steady "
-          f"({POSE_STEPS} after a warm-up; the CLI's optimize {solver.timing['optimize'] / iters * 1e3:.2f} "
-          f"ms/iteration with its first); CLI path {t_cli:.1f} s (parse "
-          f"{solver.timing['parse']:.1f} s, construct {solver.timing['construct']:.1f} s); "
-          f"max |H - H^T| over diagonal blocks {sym:g}; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; on {card}")
+    row, solver, states, step = acc.pose_row(dev, card, name, flags, golden,
+                                             float32_control=float32_control)
+    check(row["passed"], f"{row['row']}: chi2 {row['chi2']:.2f}, golden {golden}")
     return solver, states, step
 
 
@@ -1635,41 +1528,14 @@ def incremental_small_check(torch, dev):
 
 
 def incremental_row(torch, dev, card, label):
-    """One incremental acceptance row through the CLI's code path; returns
+    """One incremental acceptance row through the acceptance runner's row
+    code (app/acceptance.py ``incremental_row``), which must pass; returns
     (chi2, ms per solve point, wall seconds of the CLI's run)."""
-    from slam_plus_plus_tpu_torch.app import main as cli
-    from slam_plus_plus_tpu_torch.io import acceptance
-    from slam_plus_plus_tpu_torch.solvers.fastl import FastLSolver
+    from slam_plus_plus_tpu_torch.app import acceptance as acc
 
-    from slam_plus_plus_tpu_torch.io.parser import parse_g2o
-
-    name, flags, golden, golden_iters = acceptance.INCREMENTAL_ROWS[label]
-    path = pose_dataset(name)
-    args = cli.build_argparser().parse_args(
-        ["-i", path, "--device", dev.type, "-s", "-dx", ""] + flags)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    chi2, iters, solver = cli.run(args)
-    wall = time.perf_counter() - t0
-    fl = getattr(solver, "_delegate", None) or solver
-    check(isinstance(fl, FastLSolver), f"{label}: not the maintained-factor engine")
-    check(fl.asm.dtype == torch.float64, f"{label}: the incremental engine runs float64")
-    verdict = row_gate(label, chi2, golden, lambda: float(
-        fl.asm.chi2(fl.asm.snapshot_states(parse_g2o(path)))))
-    st, inc = fl.stats, fl.inc
-    ms_point = st["elapsed"] / max(st["solve_points"], 1) * 1e3
-    print(f"incremental row {label} ({fl.system.num_vertices} vertices, "
-          f"{fl.system.num_edges} edges; {fl.asm.Np} x {fl.asm.Bp} dims, one mixed class): chi2 "
-          f"{chi2:.2f} in {iters} iterations, {st['pushes']} pushes {verdict} {acceptance.GATE} x "
-          f"{golden} (ratio {chi2 / golden:.4f}; the reference {golden} in {golden_iters} "
-          f"iterations); {st['solve_points']} solve points, {ms_point:.2f} ms per solve point "
-          f"(replay {st['elapsed']:.1f} s / solve points); {st['full_refactors']} full "
-          f"refactors, {st['dirty_overflows']} dirty overflows (caps d/e/w/p {inc.cap_d}/"
-          f"{inc.cap_e}/{inc.cap_w}/{inc.cap_p}); {len(fl.chol.plan.levels)} MIS levels, bottom "
-          f"{fl.chol.plan.n_bottom} blocks; wall {wall:.1f} s (parse {fl.timing['parse']:.1f} s, "
-          f"construct {fl.timing['construct']:.1f} s); peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; on {card}")
-    return chi2, ms_point, wall
+    row, _fl = acc.incremental_row(dev, card, label)
+    check(row["passed"], f"{label}: chi2 {row['chi2']:.2f}, golden {row['golden']}")
+    return row["chi2"], row["ms_per_solve_point"], row["wall_s"]
 
 
 class _Profiled(Exception):
@@ -3140,7 +3006,8 @@ DIST_REPS = 3
 #: solve is printed, not gated: on the card the ranks' batched 3 x 3
 #: products can round 1 ulp apart from the whole batch's when two ranks
 #: share it, which these lambdas amplify to 1e-9..1e-7 (w100k's own
-#: single-process factors with atomic sums differ by more; PERF.md section 6)
+#: single-process factors differed by more while their sums were atomic;
+#: PERF.md section 6)
 DIST_CHOL_ROWS = ("city10k", "w100k")
 DIST_CHOL_TOL = 1e-10
 DIST_TIMEOUT_S = 300
@@ -3239,10 +3106,12 @@ def _dist_chol_rank(torch, dev, paths):
     lambda against the single-process factor of the same rank: the relative
     residual ||eta - lambda dx|| / ||eta|| of both solves (solve, and
     solve_with_factor on a second factor, which under deterministic
-    algorithms must repeat it bit for bit), and the forward distance
-    between the two dx, under
-    torch.use_deterministic_algorithms and with atomic sums; then ms per
-    factor of both, collectives timed."""
+    algorithms must repeat it bit for bit), a second single-process solve
+    (which must repeat the first bit for bit: the factor's sums run in a
+    fixed order, ops/segsum.py), and the forward distance between the
+    single-process and the distributed dx, under
+    torch.use_deterministic_algorithms and with the default algorithms;
+    then ms per factor of both, collectives timed."""
     from slam_plus_plus_tpu_torch.assembly.assembler import Assembler
     from slam_plus_plus_tpu_torch.io.native_parser import parse_g2o_fast
     from slam_plus_plus_tpu_torch.linalg.block_cholesky import BlockCholeskySolver
@@ -3268,13 +3137,15 @@ def _dist_chol_rank(torch, dev, paths):
         for det in (True, False):
             torch.use_deterministic_algorithms(det)
             want = single.solve(bs.pp_blocks, bs.eta_p)
+            again = single.solve(bs.pp_blocks, bs.eta_p)
             got = distc.solve(bs.pp_blocks, bs.eta_p)
             got_f = distc.solve_with_factor(distc.factor(bs.pp_blocks), bs.eta_p)
-            res["deterministic" if det else "atomic"] = dict(
+            res["deterministic" if det else "default"] = dict(
                 residual_single=residual(want), residual_dist=residual(got),
                 residual_dist_f=residual(got_f),
                 forward=float((got - want).abs().max() / want.abs().max()),
-                repeat=float((got_f - got).abs().max()))
+                repeat=float((got_f - got).abs().max()),
+                repeat_single=float((again - want).abs().max()))
         torch.use_deterministic_algorithms(False)
         _f, ms_single = _synced(torch, dev, lambda: single.factor(bs.pp_blocks), DIST_REPS)
         distc.comm.timing = True
@@ -3462,18 +3333,21 @@ def parallel_phase(torch, dev, card, kernels, step, states0):
         for name, c in res["dist_chol"].items():
             for mode, e in c["res"].items():
                 check(max(e["residual_dist"], e["residual_dist_f"]) <= DIST_CHOL_TOL
-                      and (mode == "atomic" or e["repeat"] == 0.0),
+                      and (mode == "default" or e["repeat"] == 0.0)
+                      and e["repeat_single"] == 0.0,
                       f"(d) rank {r} {name} {mode}: {e}")
             coll = _fmt_shares(c["shares"])
-            det, ato = c["res"]["deterministic"], c["res"]["atomic"]
+            det, ato = c["res"]["deterministic"], c["res"]["default"]
             print(f"  (d) rank {r} {name} ({c['dims']} dims, {c['levels']} MIS levels, bottom "
                   f"{c['bottom']} blocks): residual distributed {det['residual_dist']:.2e} / "
                   f"single {det['residual_single']:.2e} under deterministic algorithms, "
-                  f"{ato['residual_dist']:.2e} / {ato['residual_single']:.2e} with atomic sums "
-                  f"(tol {DIST_CHOL_TOL:g}); solve_with_factor on the replicated factor repeats "
-                  f"the solve bit for bit under deterministic algorithms ({ato['repeat']:.2e} "
-                  f"apart with atomic sums); forward distance to the single-process dx "
-                  f"{det['forward']:.2e} (deterministic), {ato['forward']:.2e} (atomic); "
+                  f"{ato['residual_dist']:.2e} / {ato['residual_single']:.2e} with the default "
+                  f"ones (tol {DIST_CHOL_TOL:g}); two single-process solves bit for bit equal "
+                  f"under both (the segmented sums); solve_with_factor on the replicated factor "
+                  f"repeats the solve bit for bit under deterministic algorithms "
+                  f"({ato['repeat']:.2e} apart with the default ones); forward distance to the "
+                  f"single-process dx {det['forward']:.2e} (deterministic), "
+                  f"{ato['forward']:.2e} (default); "
                   f"{c['ms_factor']:.2f} ms per distributed factor (single-process "
                   f"{c['ms_single']:.2f}), collectives {coll}; on {card}")
 
@@ -3509,6 +3383,76 @@ def parallel_phase(torch, dev, card, kernels, step, states0):
               f"(single-process {chi2:.2f})")
     print(f"phase 15 walls: gloo world {t_gloo:.1f} s, NCCL world {t_nccl:.1f} s, CLI pair "
           f"{t_cli:.1f} s")
+
+
+
+# ---- phase 16: the entry points ----------------------------------------------
+
+#: the entry points' time limits (the bench: set-up, 5 steps and the C++
+#: extra, ~1 min; the acceptance rows: ~20 s)
+ENTRY_TIMEOUT_S = 400
+#: phase 10's rows that phase 16 replays once more, which must repeat to the bit
+REPEAT_ROWS = ("intel-scale -nsp 1 -fL", "manhattan3500 -nsp 1 -fL")
+
+
+def _entry_point(args, what):
+    """Run ``python -m args`` from the repository's root; (exit code, the
+    last line of its standard output, the output's tail)."""
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=REPO, capture_output=True,
+                          text=True, timeout=ENTRY_TIMEOUT_S)
+    lines = proc.stdout.strip().splitlines()
+    tail = "\n".join(lines[-12:]) + "\n" + proc.stderr[-3000:]
+    check(proc.returncode == 0, f"{what} exited {proc.returncode}:\n{tail}")
+    check(bool(lines), f"{what} printed nothing")
+    return proc.returncode, lines[-1], tail
+
+
+def entry_points_phase(torch, dev, card, phase10):
+    from slam_plus_plus_tpu_torch.app import acceptance as acc
+
+    # (a) the bench entry point: the metric line, its gate and its launches
+    t0 = time.perf_counter()
+    _rc, last, _tail = _entry_point(["slam_plus_plus_tpu_torch.bench"], "the bench")
+    out = json.loads(last)
+    keys = ("metric", "value", "unit", "vs_baseline", "fastl_m3500_wall_s",
+            "fastl_m3500_ms_per_applied_step", "fastl_m3500_chi2", "fastl_native")
+    check(all(k in out for k in keys), f"the bench's line lacks {set(keys) - set(out)}")
+    check(out["metric"] == "ba_solve_iter" and out["unit"] == "ms" and out["value"] > 0,
+          f"the bench's line: {last}")
+    check(out["chi2"] <= 1.05 * REF_FINAL_CHI2, f"the bench's chi2 {out['chi2']}")
+    check(out["launches"]["p2c_edge_terms"] > 0 and out["launches"]["build_panels"] > 0,
+          f"the bench's step launched {out['launches']}")
+    check(out["fastl_native"] and out["fastl_m3500_chi2"] <= 1.05 * 1418.70,
+          f"the bench's FastL extra: {out['fastl_m3500_chi2']}")
+    print(f"(a) python -m slam_plus_plus_tpu_torch.bench: {out['value']} ms per damped Schur "
+          f"step, vs_baseline {out['vs_baseline']}, chi2 {out['chi2']}; launches in its run "
+          f"{out['launches']}; set-up {out['breakdown_s']}; FastL extra manhattan3500 -nsp 1 "
+          f"-fL on the C++ engine: chi2 {out['fastl_m3500_chi2']}, wall "
+          f"{out['fastl_m3500_wall_s']} s, {out['fastl_m3500_ms_per_applied_step']} ms per "
+          f"applied step; {time.perf_counter() - t0:.1f} s with its process; on {card}")
+
+    # (b) the acceptance runner on the intel-scale rows
+    t0 = time.perf_counter()
+    _rc, last, tail = _entry_point(["slam_plus_plus_tpu_torch.app.acceptance", "--rows",
+                                    "intel-scale"], "the acceptance runner")
+    summary = json.loads(last)
+    check(summary["total"] == 2 and summary["passed"] == summary["total"],
+          f"the acceptance runner: {summary}\n{tail}")
+    rows = [json.loads(x) for x in tail.splitlines() if x.startswith('{"row"')]
+    print(f"(b) python -m slam_plus_plus_tpu_torch.app.acceptance --rows intel-scale: " +
+          "; ".join(f"{r['row']} chi2 {r['chi2']!r} (ratio {r['ratio']:.4f}), "
+                    f"{r.get('ms_per_iteration', r.get('ms_per_solve_point')):.2f} ms per "
+                    f"{'iteration' if 'ms_per_iteration' in r else 'solve point'}, wall "
+                    f"{r['wall_s']:.1f} s" for r in rows) +
+          f"; summary {summary}; {time.perf_counter() - t0:.1f} s with its process")
+
+    # (c) the deterministic sums: phase 10's replays once more, to the bit
+    for label in REPEAT_ROWS:
+        row, _fl = acc.incremental_row(dev, card, label)
+        check(row["chi2"] == phase10[label][0],
+              f"{label}: chi2 {row['chi2']!r} against phase 10's {phase10[label][0]!r}")
+        print(f"(c) {label} once more: chi2 {row['chi2']!r}, equal to phase 10's to the bit; "
+              f"wall {row['wall_s']:.1f} s (phase 10: {phase10[label][2]:.1f} s)")
 
 
 if __name__ == "__main__":

@@ -15,9 +15,12 @@ Pallas kernels of the BA path rewritten as CUDA C++ for Hopper
 (``csrc/``); the incremental engines, marginal covariances, the native host
 code, and the host tools and example apps (geometry, the eigensolver,
 nested-Schur analysis, matrix I/O, FLOP counts, the stage timer, poly
-fitting and the ACRA study), and distribution over torch.distributed
-(``parallel/``).  ROADMAP.md lists the TPU- and XLA-only code that is not
-ported.
+fitting and the ACRA study), distribution over torch.distributed
+(``parallel/``), and the repository's run entry points: ``bench`` (bench.py's
+metric line), ``app.acceptance`` (the acceptance suite) and
+``app.schur_orderings``.  The float64 routes sum in a fixed order
+(``ops/segsum.py``), so a run repeats to the bit on the card.  ROADMAP.md
+lists the TPU- and XLA-only code that is not ported.
 
 Public API:
     parse_g2o / peek_dataset  — dataset ingestion (g2o dialect)

@@ -6,8 +6,9 @@ loop): an incremental FastL replay maintains the per-vertex covariance
 diagonal inside its loop (``marginals=True``); then the query pose is
 tested against each candidate under the posterior: the relative-pose
 distribution (evaluation/distances.py, reference include/slam/Distances.h),
-reduced to 4D [x y z theta] by the rotation-magnitude transform, goes
-through the Mahalanobis gate GATE.
+reduced to 4D [x y z theta] by the rotation-magnitude transform (or the
+view-direction one, ``transform=``), goes through the Mahalanobis gate
+(``gate=``, GATE by default).
 
     python -m slam_plus_plus_tpu_torch.app.dataassoc_example [file.g2o] [--device cuda|cpu]
 
@@ -27,7 +28,7 @@ import numpy as np
 
 from slam_plus_plus_tpu_torch.evaluation.distances import (
     mahalanobis_distance2, mahalanobis_gate, relative_pose_distribution,
-    rotation_magnitude_transform)
+    rotation_magnitude_transform, view_direction_transform)
 from slam_plus_plus_tpu_torch.graph.system import GraphSystem
 from slam_plus_plus_tpu_torch.solvers.fastl import FastLSolver
 
@@ -35,11 +36,22 @@ from slam_plus_plus_tpu_torch.solvers.fastl import FastLSolver
 GATE = np.array([1.0, 1.0, 1.0, 0.5])
 
 
-def run_association(system: GraphSystem, query: int, candidates: List[int], *, device,
+#: transform name -> the distance transform it names (the JAX app's names)
+TRANSFORMS = {"rotation_magnitude": rotation_magnitude_transform,
+              "view_direction": view_direction_transform}
+
+
+def run_association(system: GraphSystem, query: int, candidates: List[int],
+                    gate=tuple(GATE), transform: str = "rotation_magnitude", *, device,
                     verbose: bool = False):
     """(decisions, solver): decisions[i] = (candidate id, mean4, accepted,
     squared Mahalanobis distance) of each candidate, judged under the
-    maintained posterior of a FastL replay on ``device``."""
+    maintained posterior of a FastL replay on ``device``: its relative
+    pose reduced by ``transform`` (rotation_magnitude or view_direction)
+    and held against ``gate`` on [x y z angle]."""
+    if transform not in TRANSFORMS:
+        raise ValueError(f"transform {transform!r}: one of {', '.join(TRANSFORMS)}")
+    tf, gate = TRANSFORMS[transform], np.asarray(gate, dtype=float)
     sv = FastLSolver(system, device=device, every_n=1, marginals=True)
     sv.run()
     sig = sv.sigma_diag()
@@ -58,9 +70,9 @@ def run_association(system: GraphSystem, query: int, candidates: List[int], *, d
     decisions = []
     for cid in candidates:
         xc, sc = pose_and_sigma(cid)
-        m4, s4 = rotation_magnitude_transform(*relative_pose_distribution(xq, xc, sq, sc))
+        m4, s4 = tf(*relative_pose_distribution(xq, xc, sq, sc))
         s4r = s4 + 1e-9 * np.eye(4)
-        ok = mahalanobis_gate(m4, s4r, GATE)
+        ok = mahalanobis_gate(m4, s4r, gate)
         decisions.append((cid, m4, bool(ok), mahalanobis_distance2(m4, s4r)))
         if verbose:
             print(f"candidate {cid}: |t|={np.linalg.norm(m4[:3]):.3f} theta={m4[3]:.3f} -> "

@@ -27,7 +27,8 @@ Two numeric paths:
   * every other problem takes the generic per-edge kernel: forward-mode
     Jacobians (``torch.func`` jvp, vmapped over the tangent basis) through
     each vertex's ⊞ (the JAX ``_make_kernel``), with IRLS robust weights and
-    the expectation mode, reduced with ``index_add_``, on the flat
+    the expectation mode, reduced by segmented sums in a fixed order
+    (ops/segsum.py: one answer per input on the card too), on the flat
     (parse-order) layout, or under ``edge_layout="uniform"`` on every
     landmark edge type sorted and padded into ``[Nl, M]`` groups (the JAX
     package's assembler.py:177-233; the landmark-sharded BA's layout).
@@ -50,6 +51,7 @@ from slam_plus_plus_tpu_torch.config import SolverSettings, default_dtype
 from slam_plus_plus_tpu_torch.graph.system import GraphSystem
 from slam_plus_plus_tpu_torch.models.types import EDGE_TYPES, VERTEX_TYPES
 from slam_plus_plus_tpu_torch.ops.p2c import p2c_edge_terms
+from slam_plus_plus_tpu_torch.ops.segsum import SegmentSum
 from slam_plus_plus_tpu_torch.robust.losses import LOSSES
 
 
@@ -106,19 +108,32 @@ def edge_jacobians(et, states, z, of_expectation: bool = False) -> List[torch.Te
     return jacs
 
 
-def edge_linearization(et, states, z, info):
+def robust_loss(et, name: str, settings: SolverSettings):
+    """(loss, scale) of a robust edge type: settings.robust_overrides' entry
+    for its name, else the "*" entry, else the type's registered pair (the
+    JAX assembler.py:460-467); None for a type that is not robust."""
+    if not et.robust:
+        return None
+    overrides = settings.robust_overrides or {}
+    loss, scale = overrides.get(name, overrides.get("*", (et.robust_loss, et.robust_scale)))
+    return loss, scale
+
+
+def edge_linearization(et, states, z, info, loss=None):
     """(r, per-slot Jacobians, weighted information) of a batch of edges at
     the states: the residual (the error of the expectation where the type
     is split so, whose Jacobians are then those of h, negated, as the
     reference), and the information scaled by the IRLS weight
     w = loss(|r| / scale) of a robust type, re-evaluated at every
     linearization (SE3_Types.h:128, RobustUtils.h:368-440,
-    NonlinearSolver_Lambda.h:455)."""
+    NonlinearSolver_Lambda.h:455).  loss: (name, scale) from
+    ``robust_loss``; None takes the type's registered pair."""
     split = et.expectation is not None
     r = et.error(z, et.expectation(states)) if split else et.residual(states, z)
     jacs = edge_jacobians(et, states, z, of_expectation=split)
     if et.robust:
-        w = LOSSES[et.robust_loss](torch.linalg.vector_norm(r, dim=-1) / et.robust_scale)
+        name, scale = loss or (et.robust_loss, et.robust_scale)
+        w = LOSSES[name](torch.linalg.vector_norm(r, dim=-1) / scale)
         info = info * w[:, None, None]
     return r, jacs, info
 
@@ -165,6 +180,7 @@ class Assembler:
         self.device = torch.device(device)
         self.dtype = dtype or default_dtype(self.device)
         self.settings = settings or SolverSettings()
+        self._flat_sums = None
         self._build_structure(system)
         self._build_device_plan(system)
 
@@ -433,9 +449,10 @@ class Assembler:
         et = EDGE_TYPES[plan.name]
         vts = [VERTEX_TYPES[t] for t in et.vertex_types]
         Bp, Bl = self.Bp, self.Bl
+        loss = robust_loss(et, plan.name, self.settings)
 
         def kernel(states, z, info):
-            r, jacs, info_w = edge_linearization(et, states, z, info)
+            r, jacs, info_w = edge_linearization(et, states, z, info, loss)
             chi2_e = (r * (info @ r[:, :, None])[:, :, 0]).sum(-1)
             padded = []
             for k, J in enumerate(jacs):
@@ -515,19 +532,42 @@ class Assembler:
         return (pp.T.contiguous(), pl, ll, eta_p.T.contiguous(), eta_l, chi2,
                 max_hdiag)
 
+    def _flat_sum_plans(self) -> Dict[str, SegmentSum]:
+        """Per output block array, one segmented sum (ops/segsum.py) of
+        every plan's slot or contribution terms, in the order
+        ``_edge_sums_flat`` lists them, over this assembler's edge_data;
+        built at first use (a masked copy of edge_data shares its index
+        arrays)."""
+        if self._flat_sums is None:
+            dst = {k: [] for k in ("pp", "pl", "ll", "eta_p", "eta_l")}
+            for plan in self.plans:
+                data = self.edge_data[plan.name]
+                for k in range(len(plan.slot_types)):
+                    cs = data["slot_cslot"][k].cpu().numpy()
+                    dst["eta_p" if plan.slot_class[k] == "p" else "eta_l"].append(cs)
+                    if plan.slot_class[k] == "l":
+                        dst["ll"].append(cs)
+                dst["pp"] += [seg.cpu().numpy() for seg in data["pp_seg"]]
+                dst["pl"] += [seg.cpu().numpy() for seg in data["pl_seg"]]
+            Np, Nl = max(self.Np, 1), max(self.Nl, 1)
+            n = dict(pp=self.Kpp, pl=max(self.Kpl, 1), ll=Nl, eta_p=Np, eta_l=Nl)
+            self._flat_sums = {
+                k: SegmentSum(np.concatenate(v) if v else np.zeros(0, dtype=np.int64), n[k],
+                              self.device)
+                for k, v in dst.items()}
+        return self._flat_sums
+
     def _edge_sums_flat(self, states, edge_data=None):
-        """Raw reductions of the generic kernels' per-edge terms: index_add_
-        onto the class slots and the pp/pl block ids, swapped pp pairs
-        transposed first.  edge_data: this assembler's, or a masked copy."""
+        """Raw reductions of the generic kernels' per-edge terms onto the
+        class slots and the pp/pl block ids, swapped pp pairs transposed
+        first: one segmented sum per output, every term in a fixed order
+        (on the CPU the order of a chain of ``index_add_``).  edge_data:
+        this assembler's, or a masked copy."""
         edge_data = edge_data or self.edge_data
         dt, dev = self.dtype, self.device
         Bp, Bl = self.Bp, self.Bl
         Np, Nl = max(self.Np, 1), max(self.Nl, 1)
-        pp = torch.zeros((self.Kpp, Bp * Bp), dtype=dt, device=dev)
-        pl = torch.zeros((max(self.Kpl, 1), Bp * Bl), dtype=dt, device=dev)
-        ll = torch.zeros((Nl, Bl * Bl), dtype=dt, device=dev)
-        eta_p = torch.zeros((Np, Bp), dtype=dt, device=dev)
-        eta_l = torch.zeros((Nl, Bl), dtype=dt, device=dev)
+        terms = {k: [] for k in ("pp", "pl", "ll", "eta_p", "eta_l")}
         chi2 = torch.zeros((), dtype=dt, device=dev)
         max_hdiag = torch.zeros((), dtype=dt, device=dev)
         for plan in self.plans:
@@ -540,22 +580,27 @@ class Assembler:
             max_hdiag = torch.maximum(max_hdiag, hdiag_e.amax())
             li = 0
             for k in range(len(plan.slot_types)):
-                cs = data["slot_cslot"][k]
                 if plan.slot_class[k] == "p":
-                    eta_p.index_add_(0, cs, gs[k])
+                    terms["eta_p"].append(gs[k])
                 else:
-                    eta_l.index_add_(0, cs, gs[k])
-                    ll.index_add_(0, cs, Hll[li])
+                    terms["eta_l"].append(gs[k])
+                    terms["ll"].append(Hll[li])
                     li += 1
             for ci, (a, b, _s, _w) in enumerate(plan.pp_contribs):
                 H = Hpp[ci]
                 if a != b:
                     swap = data["pp_swap"][ci]
                     H = torch.where(swap[:, None], H[:, self._p_tperm], H)
-                pp.index_add_(0, data["pp_seg"][ci], H)
-            for ci in range(len(plan.pl_contribs)):
-                pl.index_add_(0, data["pl_seg"][ci], Hpl[ci])
-        return pp, pl, ll, eta_p, eta_l, chi2, max_hdiag
+                terms["pp"].append(H)
+            terms["pl"] += list(Hpl)
+        sums = self._flat_sum_plans()
+        shapes = dict(pp=(self.Kpp, Bp * Bp), pl=(max(self.Kpl, 1), Bp * Bl),
+                      ll=(Nl, Bl * Bl), eta_p=(Np, Bp), eta_l=(Nl, Bl))
+        out = {k: (sums[k](torch.cat(v)) if v else
+                   torch.zeros(shapes[k], dtype=dt, device=dev))
+               for k, v in terms.items()}
+        return (out["pp"], out["pl"], out["ll"], out["eta_p"], out["eta_l"], chi2,
+                max_hdiag)
 
     def _edge_sums(self, states):
         """Raw reductions (pp, pl, ll, eta_p, eta_l, chi2, max_hdiag), all

@@ -31,18 +31,20 @@ default dtype, because tests share worker processes.
 
 Of the JAX package's SolverConfig the port carries, in ``SolverSettings``,
 the fields that a caller of the port sets to a second value: the linear
-backend, the landmark split and the edge layout.  The JAX package's
-MarginalsPolicy becomes FastL's ``marginals`` flag: no caller sets its
-refresh interval or its update switch to a second value, and its ``part``
-is read nowhere.  The others keep the JAX package's defaults as constants (the float32 PCG's 12 trips, LM's damping
-derived from the diagonal, each edge type's own robust loss) until a
-caller needs another value; ``dogleg_radius`` is read nowhere in the JAX
-package.
+backend, the landmark split, the edge layout, LM's initial damping
+(``damping_init``) and the per-edge-type robust losses
+(``robust_overrides``).  The JAX package's MarginalsPolicy becomes FastL's
+``marginals`` flag: no caller sets its refresh interval or its update
+switch to a second value, and its ``part`` is read nowhere.  The float32
+PCG keeps the JAX package's 12 trips as a constant until a caller needs
+another value; ``dogleg_radius`` is read nowhere in the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
+
 import torch
 
 LINEAR_SOLVERS = ("auto", "block_cholesky", "scipy")
@@ -60,11 +62,22 @@ class SolverSettings:
     stay <= 20000; "on" always, "off" never.  edge_layout: "auto" lets a
     mono BA problem take K1's uniform layout, "uniform" sorts and pads every
     edge type that observes one landmark into per-landmark groups (the
-    landmark-sharded BA's layout), "flat" keeps parse order."""
+    landmark-sharded BA's layout), "flat" keeps parse order.
+
+    damping_init: LM's initial damping; 0 derives it from the diagonal
+    (1e-3 x the largest per-edge vertex-Hessian diagonal, the reference's).
+    robust_overrides: {edge type name: (loss, scale)}, with loss a name of
+    robust.losses.LOSSES, replaces that robust edge type's registered loss
+    and scale; a "*" entry applies to every robust edge type without its
+    own entry (reference: the robust mixins' template parameters,
+    include/slam/RobustUtils.h:368-502).  A type that is not robust stays
+    plain, and the A solver weighs no edge."""
 
     linear_solver: str = "auto"
     schur_split: str = "auto"
     edge_layout: str = "auto"
+    damping_init: float = 0.0
+    robust_overrides: Optional[dict] = None
 
     def __post_init__(self):
         if self.linear_solver not in LINEAR_SOLVERS:
@@ -74,6 +87,11 @@ class SolverSettings:
             raise ValueError(f"schur_split {self.schur_split!r}: auto, on or off")
         if self.edge_layout not in ("auto", "uniform", "flat"):
             raise ValueError(f"edge_layout {self.edge_layout!r}: auto, uniform or flat")
+        from slam_plus_plus_tpu_torch.robust.losses import LOSSES
+        for name, (loss, _scale) in (self.robust_overrides or {}).items():
+            if loss not in LOSSES:
+                raise ValueError(f"robust_overrides[{name!r}]: loss {loss!r} is not one of "
+                                 f"{', '.join(LOSSES)}")
 
 
 def default_dtype(device) -> torch.dtype:

@@ -6,8 +6,8 @@ the distribution of the relative pose between two vertices under the
 current posterior, from their marginal covariances, and the transform
 that reduces it to 4D [x, y, z, angle] for the data-association test,
 CSE3_XYZ_RotationMagnitude_DistanceTransform (:79): angle = |axis-angle| of
-the relative rotation.  (The view-direction transform, :145, waits for a
-caller: ROADMAP.md.)
+the relative rotation, or the view-direction transform (:145): angle = the
+angle between the two frames' z+ axes.
 
 Host-side, as in the JAX package: numpy in and out, float64 on the CPU, the
 Jacobians by ``torch.func`` forward mode through the port's SE(3) math.
@@ -20,7 +20,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from slam_plus_plus_tpu_torch.manifolds import se3
+from slam_plus_plus_tpu_torch.manifolds import se3, so3
 
 
 def _t(x):
@@ -56,6 +56,24 @@ def rotation_magnitude_transform(mean, sigma):
     D = np.linalg.norm(aa)
     H[3, 3:] = aa / D if D > 0 else 1.0 / np.sqrt(3.0)
     return np.concatenate([mean[:3], [D]]), H @ sigma @ H.T
+
+
+def view_direction_transform(mean, sigma):
+    """[x y z aa] 6D distribution -> 4D [x y z view angle]: the angle
+    between the z+ axes of the two frames (reference :145-230), its
+    gradient by ``torch.func.grad``."""
+    mean = np.asarray(mean, float)
+    sigma = np.asarray(sigma, float)
+
+    def view_angle(a):
+        R = so3.axis_angle_to_rotmat(a)
+        return torch.arccos(torch.clamp(R[2, 2], -1.0, 1.0))   # z+ . R z+
+
+    aa = _t(mean[3:])
+    H = np.zeros((4, 6))
+    H[:3, :3] = np.eye(3)
+    H[3, 3:] = torch.func.grad(view_angle)(aa).numpy()
+    return np.concatenate([mean[:3], [float(view_angle(aa))]]), H @ sigma @ H.T
 
 
 def mahalanobis_distance2(mean4, sigma4) -> float:

@@ -82,9 +82,16 @@ class GraphSystem:
         self.vertex_directory[global_id] = (type_name, li)
         self.vertex_order.append(global_id)
 
+    def has_vertex(self, global_id: int) -> bool:
+        return global_id in self.vertex_directory
+
     def vertex_state(self, global_id: int) -> np.ndarray:
         tname, li = self.vertex_directory[global_id]
         return self.vertex_stores[tname].states[li]
+
+    def set_vertex_state(self, global_id: int, state) -> None:
+        tname, li = self.vertex_directory[global_id]
+        self.vertex_stores[tname].states[li] = state
 
     def add_edge(self, type_name: str, vertex_ids: Sequence[int], z, info) -> None:
         """Insert an edge, auto-creating missing vertices via the edge type's
@@ -171,3 +178,35 @@ class GraphSystem:
     @property
     def num_edges(self) -> int:
         return len(self._edge_insert_log)
+
+    def block_index(self, global_id: int) -> int:
+        """Block (column) index of a vertex in the solver ordering."""
+        return self._block_of()[global_id]
+
+    def _block_of(self) -> Dict[int, int]:
+        if getattr(self, "_block_cache_n", -1) != len(self.vertex_order):
+            self._block_cache = {g: i for i, g in enumerate(self.vertex_order)}
+            self._block_cache_n = len(self.vertex_order)
+        return self._block_cache
+
+    def tangent_offsets(self) -> Tuple[np.ndarray, int]:
+        """Per-vertex tangent-space offsets in insertion order:
+        (offsets [num_vertices], total tangent dim)."""
+        dims = np.array([VERTEX_TYPES[self.vertex_directory[g][0]].tangent_dim
+                         for g in self.vertex_order], dtype=np.int64)
+        offsets = np.zeros(len(dims), dtype=np.int64)
+        if len(dims) > 1:
+            offsets[1:] = np.cumsum(dims)[:-1]
+        return offsets, int(dims.sum()) if len(dims) else 0
+
+    def dump(self, path: str) -> None:
+        """Write the vertex states in insertion order, one line per vertex
+        (reference CFlatSystem::Dump -> solution.txt)."""
+        with open(path, "w") as f:
+            for g in self.vertex_order:
+                f.write(" ".join(f"{x:.10f}" for x in self.vertex_state(g)) + "\n")
+
+    def summary(self) -> str:
+        v = {t: s.n for t, s in self.vertex_stores.items()}
+        e = {t: s.n for t, s in self.edge_stores.items()}
+        return f"GraphSystem(vertices={v}, edges={e})"

@@ -2,8 +2,10 @@
 generators: the batch pose-graph rows at the settings of
 scripts/acceptance.py (manhattan3500, city10k, sphere2500, trees10k, and
 intel-scale, garage3d and w100k, the reference suite's largest pose graph
-at 100,000 poses), the BA row venice-real (871 cameras, 100,000 points,
-800,000 observations) as scripts/venice_real_tpu.py:38-41 makes it, and
+at 100,000 poses), the BA rows venice-class (bench.py's scene: 100
+cameras, 8000 points, seed 77, gated at bench.py's 222855.82) and
+venice-real (871 cameras, 100,000 points, 800,000 observations) as
+scripts/venice_real_tpu.py:38-41 makes it, and
 the six incremental rows (-nsp 1, with and without -fL) on manhattan3500,
 city10k, intel-scale and two landmark files, vp-scale and trees10k-incr
 (scripts/acceptance.py:110-122).
@@ -29,7 +31,10 @@ ROWS = {
     "intel-scale": (["-po"], 392.09),
     "garage3d": (["-po", "-lm", "-mfnsi", "20"], 3.74),
     "w100k": (["-po"], 213795479.57),
+    "venice-class": ([], 222855.82),    # the bench scene (bench.py's gate)
 }
+#: the BA rows (float32 on the card: the Schur route's dtype)
+BA_ROWS = ("venice-class", "venice-real")
 #: the pose-graph rows of the first pose-graph slice
 POSE_ROWS = ("manhattan3500", "city10k", "sphere2500", "trees10k")
 #: the pose-graph rows added with the rest of batch solving
@@ -99,6 +104,9 @@ def dataset(name: str, directory: str) -> str:
     elif name == "w100k":
         poses, edges = D.make_city_2d(n_poses=100000, seed=77)
         D.write_g2o_2d(tmp, edges, poses)
+    elif name == "venice-class":
+        cams, pts, obs = D.make_ba_scene(n_cams=100, n_points=8000, seed=77)
+        D.write_g2o_ba(tmp, cams, pts, obs)
     elif name == "venice-real":
         cams, pts, obs = D.make_ba_scene_large(n_cams=871, n_points=100000,
                                                obs_per_point=8, seed=871)

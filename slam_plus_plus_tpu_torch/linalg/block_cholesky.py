@@ -7,7 +7,8 @@ reference include/slam/LinearSolver_UberBlock.h:45,216,272):
   * each level eliminates a maximal independent set (MIS) of low-degree
     block vertices; by independence their pivot submatrix is block diagonal,
     so a level is one batched planar inverse plus batched block products
-    and ``index_add_`` reductions;
+    and segmented sums in a fixed order (ops/segsum.py: the plan sorts each
+    level's destinations once, so a factor repeats to the bit);
   * after the levels the reduced system is scattered dense and factored by
     one Cholesky;
   * the symbolic plan (per-level index arrays, host numpy, copied from the
@@ -39,6 +40,7 @@ import numpy as np
 import torch
 
 from slam_plus_plus_tpu_torch.ops import planar
+from slam_plus_plus_tpu_torch.ops.segsum import SegmentSum
 
 
 # ----------------------------------------------------------------------
@@ -315,7 +317,10 @@ def _bmm_t(W, x):
 
 
 class _DeviceLevel(NamedTuple):
-    """One level's index arrays as tensors on the solver's device."""
+    """One level's index arrays as tensors on the solver's device, and its
+    segmented sums (fill products into the next level, couplings into the
+    eliminated and the surviving vertices, the marginals' Sigma_ER and
+    Sigma_EE terms)."""
     n: int
     n_next: int
     n_elim: int
@@ -335,6 +340,25 @@ class _DeviceLevel(NamedTuple):
     p_dst: torch.Tensor
     carry_src: torch.Tensor
     carry_dst: torch.Tensor
+    fill_sum: SegmentSum
+    elim_sum: SegmentSum
+    rest_sum: SegmentSum
+    er_sum: SegmentSum
+    ee_sum: SegmentSum
+
+
+def _device_level(lv: _Level, t, device) -> _DeviceLevel:
+    Ku = len(lv.u_src)
+    return _DeviceLevel(
+        lv.n, lv.n_next, lv.n_elim, lv.K, lv.K_next, bool(len(lv.pa)),
+        t(lv.elim_orig), t(lv.rest_orig), t(lv.elim_diag_idx), t(lv.u_src),
+        t(lv.u_flip), t(lv.u_elim), t(lv.u_rest_next), t(lv.pa), t(lv.pb),
+        t(lv.p_flip), t(lv.p_dst), t(lv.carry_src), t(lv.carry_dst),
+        SegmentSum(lv.p_dst, lv.K_next, device),
+        SegmentSum(lv.u_elim, lv.n_elim, device),
+        SegmentSum(lv.u_rest_next, lv.n_next, device),
+        SegmentSum(np.concatenate([lv.pb, lv.pa]), Ku, device),
+        SegmentSum(np.concatenate([np.arange(lv.n_elim), lv.u_elim]), lv.n_elim, device))
 
 
 class BlockCholeskySolver:
@@ -360,12 +384,7 @@ class BlockCholeskySolver:
         def t(x):
             return torch.as_tensor(np.asarray(x), device=self.device)
 
-        self._levels = [_DeviceLevel(
-            lv.n, lv.n_next, lv.n_elim, lv.K, lv.K_next, bool(len(lv.pa)),
-            t(lv.elim_orig), t(lv.rest_orig), t(lv.elim_diag_idx), t(lv.u_src),
-            t(lv.u_flip), t(lv.u_elim), t(lv.u_rest_next), t(lv.pa), t(lv.pb),
-            t(lv.p_flip), t(lv.p_dst), t(lv.carry_src), t(lv.carry_dst))
-            for lv in plan.levels]
+        self._levels = [_device_level(lv, t, self.device) for lv in plan.levels]
         self._input_perm = t(plan.input_perm)
         self._diag_pos0 = t(plan.diag_pos0)
         self._rows0, self._cols0 = t(plan.rows0), t(plan.cols0)
@@ -409,8 +428,7 @@ class BlockCholeskySolver:
             if lv.has_fill:
                 prod = planar.bmm_A_Bt(W[lv.pa], U[lv.pb], B, B, B)
                 prod = torch.where(lv.p_flip[:, None], planar.btranspose(prod, B, B), prod)
-                fill = torch.zeros_like(Hn).index_add_(0, lv.p_dst, prod)
-                Hn = Hn - fill
+                Hn = Hn - lv.fill_sum(prod)
             if trace is not None:
                 trace.append((H, prod))
             H = Hn
@@ -421,6 +439,8 @@ class BlockCholeskySolver:
     def _bottom_dense(self, H):
         nb = self.plan.n_bottom * self.B
         dense = torch.zeros(nb * nb, dtype=H.dtype, device=H.device)
+        # each call writes every position once (a diagonal block's mirror
+        # adds zeros): a scatter in a fixed order
         dense.index_add_(0, self._bottom_idx, H.reshape(-1))
         mirrored = H[:, self._tperm] * self._bottom_off.to(H.dtype)[:, None]
         dense.index_add_(0, self._bottom_idx_t, mirrored.reshape(-1))
@@ -435,9 +455,7 @@ class BlockCholeskySolver:
             lv = self._levels[li]
             # x_e = C^-1 eta_e - sum_u W_u^T x_rest(u)
             corr = _bmm_t(Ws[li], x[lv.u_rest_next])
-            seg = torch.zeros((lv.n_elim, B, k), dtype=x.dtype, device=x.device)
-            seg.index_add_(0, lv.u_elim, corr)
-            x_e = torch.bmm(c_invs[li].reshape(-1, B, B), etas[li]) - seg
+            x_e = torch.bmm(c_invs[li].reshape(-1, B, B), etas[li]) - lv.elim_sum(corr)
             xk = torch.zeros((lv.n, B, k), dtype=x.dtype, device=x.device)
             xk[lv.rest_orig] = x
             xk[lv.elim_orig] = x_e
@@ -466,9 +484,7 @@ class BlockCholeskySolver:
             eta_E = eta[lv.elim_orig]
             etas.append(eta_E)
             corr = torch.bmm(W.reshape(-1, B, B), eta_E[lv.u_elim])
-            seg = torch.zeros((lv.n_next, B, k), dtype=eta.dtype, device=eta.device)
-            seg.index_add_(0, lv.u_rest_next, corr)
-            eta = eta[lv.rest_orig] - seg
+            eta = eta[lv.rest_orig] - lv.rest_sum(corr)
         nb = self.plan.n_bottom * B
         xb = _bottom_solve(f.L_bottom, f.scale, eta.reshape(nb, k))
         dx = self._ascend(xb.reshape(self.plan.n_bottom, B, k), f.c_invs, f.Ws, etas)
@@ -526,11 +542,9 @@ class BlockCholeskySolver:
                 term_b = planar.bmm_At_B(W[lv.pa], S_ab, B, B, B)
                 term_a = planar.bmm_At_B(W[lv.pb], S_ba, B, B, B)
                 term_a = term_a * (lv.pa != lv.pb).to(dt)[:, None]
-                Sig_ER.index_add_(0, lv.pb, term_b, alpha=-1)
-                Sig_ER.index_add_(0, lv.pa, term_a, alpha=-1)
-            # Sigma_EE = C^-1 - sum_u Sigma_ER[u] W_u
-            Sig_EE = f.c_invs[li].index_add(0, lv.u_elim, planar.bmm(Sig_ER, W, B, B, B),
-                                            alpha=-1)
+                Sig_ER = -lv.er_sum(torch.cat([term_b, term_a]))
+            # Sigma_EE = C^-1 - sum_u Sigma_ER[u] W_u, summed from C^-1 on
+            Sig_EE = lv.ee_sum(torch.cat([f.c_invs[li], -planar.bmm(Sig_ER, W, B, B, B)]))
             Sig_k = torch.zeros((lv.K, BB), dtype=dt, device=dev)
             Sig_k[lv.carry_src] = Sig[lv.carry_dst]
             Sig_k[lv.elim_diag_idx] = Sig_EE

@@ -22,7 +22,11 @@ The layout is the JAX package's:
     step's shapes never depend on its data;
   * the host reachability walk (numpy, copied from the JAX module) packs
     global flat indices into one [L, ROW] buffer, and the whole replay's
-    walks are done in one vectorized pass (``prepare_host_batch``).
+    walks are done in one vectorized pass (``prepare_host_batch``);
+  * the many-to-one sums of a step (the omega batch's and each level's
+    into the next dirty list) are segmented sums in a fixed order
+    (ops/segsum.py), sorted on the device once per step, so a replay
+    repeats to the bit on the card.
 
 A step whose dirty set overflows a capacity takes the full redescent — the
 reference's Refresh_R_FullR fallback (NonlinearSolver_FastL.h:2367); the
@@ -46,6 +50,7 @@ import torch
 from slam_plus_plus_tpu_torch.linalg.block_cholesky import (
     BlockCholeskyFactor, BlockCholeskySolver, _equilibrated_cholesky)
 from slam_plus_plus_tpu_torch.ops import planar
+from slam_plus_plus_tpu_torch.ops.segsum import SegmentSum, segment_order, segment_sum
 
 #: a step's omega delta batch, in contributions: a larger batch (only after
 #: a long quiet stretch) takes the full redescent
@@ -109,6 +114,8 @@ class IncrementalCholesky:
         self._rows0 = t(plan.rows0)
         self._cols0 = t(plan.cols0)
         self._offdiag0 = t(plan.rows0 != plan.cols0)
+        self._spmv_sum = SegmentSum(np.concatenate([plan.rows0, plan.cols0]), plan.N,
+                                    self.device)
 
     def _set_caps(self, caps) -> None:
         # uniform per-level capacities: dirty sets stay small and nearly
@@ -629,12 +636,10 @@ class IncrementalCholesky:
         cap_d = self.cap_d
         f32 = dt == torch.float32
 
-        def seg_sum(vals, segs):
-            """Sum rows into cap_d segments; segment cap_d (padding) drops."""
-            out = torch.zeros((cap_d + 1, BB), dtype=dt, device=dev)
-            return out.index_add_(0, segs, vals)[:cap_d]
-
-        d_val = seg_sum(omega_vals, omega_seg)
+        # rows summed into cap_d segments in a fixed order (segment cap_d,
+        # the padding, drops): the omega batch's, then every level's, each
+        # sorted once per step
+        d_val = segment_sum(omega_vals, *segment_order(omega_seg, cap_d))
         s = self._slots
 
         def col(name):
@@ -656,7 +661,9 @@ class IncrementalCholesky:
             C_old_w, W_old_pa, P_old = C[col("w_celim")], W[col("p_wa")], P[ppos]
             e_dpos, w_dpos, w_epos = col("e_dpos"), col("w_dpos"), col("w_epos")
             p_wapos, p_ub_dpos = col("p_wapos"), col("p_ub_dpos")
-            c_pos, segs = col("c_pos"), torch.cat([col("c_seg"), col("p_seg")], dim=1)
+            c_pos = col("c_pos")
+            seg_perm, seg_off = segment_order(torch.cat([col("c_seg"), col("p_seg")], dim=1),
+                                              cap_d)
             w_new_e = (w_epos < self.cap_e)[:, :, None]
             p_new_w = (p_wapos < self.cap_w)[:, :, None]
             d_all, c_all, w_all, p_all = [], [], [], []
@@ -686,15 +693,18 @@ class IncrementalCholesky:
                 c_all.append(c_new)
                 w_all.append(W_new)
                 p_all.append(newp)
-                d_val = seg_sum(vals, segs[li])
+                d_val = segment_sum(vals, seg_perm[li], seg_off[li])
             # apply every level's updates in one scatter per store (entries
-            # belong to exactly one level: no cross-level duplicates)
+            # belong to exactly one level: no cross-level duplicates; within
+            # a level each real entry has its own row and the padding adds
+            # zeros to the SINK row, which nothing reads: a fixed result)
             H.index_add_(0, col("d_pos").reshape(-1), torch.stack(d_all).reshape(-1, BB))
             C[col("e_pos").reshape(-1)] = torch.stack(c_all).reshape(-1, BB)
             W[col("w_pos").reshape(-1)] = torch.stack(w_all).reshape(-1, BB)
             P[ppos.reshape(-1)] = torch.stack(p_all).reshape(-1, BB)
 
         # bottom: apply the deltas to its stored blocks and the dense matrix
+        # (one row per real entry, as above)
         H.index_add_(0, bot_h, d_val)
         dense = stores["dense"]
         dense.index_add_(0, self._bot_idx_ext[bot_sel].reshape(-1), d_val.reshape(-1))
@@ -770,10 +780,9 @@ class IncrementalCholesky:
         """y = lambda x through the level-0 (raw, unscaled) pattern blocks."""
         B = self.B
         lam = stores["H"][:self.K0] / stores["outer0"][:self.K0]
-        y = torch.zeros_like(x).index_add_(
-            0, self._rows0, planar.bmv(lam, x[self._cols0], B, B))
+        y = planar.bmv(lam, x[self._cols0], B, B)
         yt = planar.bmv_At(lam, x[self._rows0], B, B) * self._offdiag0[:, None].to(x.dtype)
-        return y.index_add_(0, self._cols0, yt)
+        return self._spmv_sum(torch.cat([y, yt]))
 
     def solve_refined(self, stores, eta0):
         """The solve, plus in float32 one Richardson pass against the

@@ -88,3 +88,36 @@ def quat_to_rotmat(q):
 
 def axis_angle_to_rotmat(aa):
     return quat_to_rotmat(axis_angle_to_quat(aa))
+
+
+def rotmat_to_quat(R):
+    """[..., 3, 3] rotation matrix -> [..., 4] quaternion, w >= 0.
+
+    Shepperd's method without branches, as the JAX module: the four
+    candidate quaternions, each scaled by its (nonnegative) squared
+    magnitude, and the one of the largest magnitude taken."""
+    r00, r11, r22 = R[..., 0, 0], R[..., 1, 1], R[..., 2, 2]
+    zero = torch.zeros_like(r00)
+    qw2 = torch.maximum(zero, 1.0 + r00 + r11 + r22) / 4.0
+    qx2 = torch.maximum(zero, 1.0 + r00 - r11 - r22) / 4.0
+    qy2 = torch.maximum(zero, 1.0 - r00 + r11 - r22) / 4.0
+    qz2 = torch.maximum(zero, 1.0 - r00 - r11 + r22) / 4.0
+    a, b = R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0]
+    c = R[..., 1, 0] - R[..., 0, 1]
+    d, e = R[..., 1, 0] + R[..., 0, 1], R[..., 0, 2] + R[..., 2, 0]
+    f = R[..., 2, 1] + R[..., 1, 2]
+    cands = torch.stack([
+        torch.stack([qw2 * 4.0, a, b, c], dim=-1),
+        torch.stack([a, qx2 * 4.0, d, e], dim=-1),
+        torch.stack([b, d, qy2 * 4.0, f], dim=-1),
+        torch.stack([c, e, f, qz2 * 4.0], dim=-1),
+    ], dim=-2)                                                   # [..., 4, 4]
+    best = torch.argmax(torch.stack([qw2, qx2, qy2, qz2], dim=-1), dim=-1)
+    q = torch.gather(cands, -2, best[..., None, None].expand(*best.shape, 1, 4))[..., 0, :]
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    return torch.where(q[..., :1] < 0, -q, q)
+
+
+def rotmat_to_axis_angle(R):
+    """[..., 3, 3] rotation matrix -> [..., 3] axis-angle."""
+    return quat_to_axis_angle(rotmat_to_quat(R))

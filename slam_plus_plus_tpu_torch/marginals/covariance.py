@@ -127,7 +127,8 @@ class Marginals:
             self.route = "sparse"
             self._sparse = BlockCholeskySolver(asm.pp_rows, asm.pp_cols, Np, Bp,
                                                device=asm.device)
-            self._diag_pos = t(inverse_perm(self._sparse.plan.input_perm)[asm.pp_diag_ids])
+            self._inv_perm = t(inverse_perm(self._sparse.plan.input_perm))
+            self._diag_pos = self._inv_perm[t(asm.pp_diag_ids)]
         else:
             self.route = "dense"
             self._dense_pp = DenseScatter(asm.pp_rows, asm.pp_cols, Np, Bp, asm.device)
@@ -198,6 +199,18 @@ class Marginals:
             n = min(C, Nl - first)
             l_diag[first:first + n] += corr[:n].reshape(n, Bl * Bl)
         return MarginalsResult(self._p_diag(sigma_pp), l_diag)
+
+
+    def sigma_blocks(self, bs):
+        """Sigma on lambda's pattern, [Kpp, Bp*Bp] planar in the
+        assembler's pair order, by the recurrent recovery (route "sparse"
+        only, as in the JAX package; no gauge jitter).  The off-diagonal
+        blocks feed the compact-pose distance tests (reference
+        include/slam/Distances.h:79)."""
+        if self.route != "sparse":
+            raise ValueError("sigma_blocks requires mode='sparse'")
+        sig = self._sparse.marginals(self._sparse.factor(bs.pp_blocks))
+        return sig[self._inv_perm]
 
 
 class IncrementalMarginals:
@@ -274,6 +287,11 @@ class IncrementalMarginals:
         self._corrections.append((X, K))
         self._rank_used += k
         return self._sigma_diag
+
+    @staticmethod
+    def omega_sqrt_for_edge(asm, states, ename: str, eidx: int):
+        """omega_sqrt_for_edges of one edge: G [Np*Bp, m]."""
+        return IncrementalMarginals.omega_sqrt_for_edges(asm, states, ename, [eidx])
 
     @staticmethod
     def omega_sqrt_for_edges(asm, states, ename: str, eidxs):

@@ -1,2 +1,2 @@
-"""Small-block algebra and the hand-written CUDA kernels with their plain
-torch versions."""
+"""Small-block algebra, the hand-written CUDA kernels with their plain
+torch versions, and the fixed-order segmented sums."""

@@ -13,16 +13,16 @@ level's batched work of linalg/block_cholesky.py is split over the ranks:
     axis per rank and all-gathered (every rank's fill products need
     arbitrary W rows);
   * the fill products, each level's dominant work, run on a 1/n slice of
-    the product axis per rank; the partial ``index_add_`` into the next
-    level's pattern is completed by one ``all_reduce``.  The slices are cut
-    at destination boundaries (about T / n products each): every
-    next-level block is summed on one rank, in the single-process order,
-    and the other ranks add exact zeros to it.  Where ``index_add_`` is
-    deterministic (the CPU) the factor is then the single-process one bit
-    for bit; a cut across a destination (the JAX module's even split, pad
-    lanes into a dropped segment) sums in another order, and on a pose
-    graph's lambda (kappa ~1e8 and more) that moves the solve by up to
-    ~1e-10 relative;
+    the product axis per rank; the partial segmented sum into the next
+    level's pattern (ops/segsum.py, a fixed order) is completed by one
+    ``all_reduce``.  The slices are cut at destination boundaries (about
+    T / n products each): every next-level block is summed on one rank, in
+    the single-process order, and the other ranks add exact zeros to it, so
+    the factor is the single-process one bit for bit wherever the ranks'
+    batched products round as the whole batch's; a cut across a
+    destination (the JAX module's even split, pad lanes into a dropped
+    segment) sums in another order, and on a pose graph's lambda (kappa
+    ~1e8 and more) that moves the solve by up to ~1e-10 relative;
   * the dense bottom factor and the triangular solves run replicated.
 
 Per level the collectives move one W all-gather ([Ku, B*B]) and one next-H
@@ -38,6 +38,7 @@ import torch
 from slam_plus_plus_tpu_torch.linalg.block_cholesky import (
     BlockCholeskyFactor, BlockCholeskySolver, _equilibrated_cholesky)
 from slam_plus_plus_tpu_torch.ops import planar
+from slam_plus_plus_tpu_torch.ops.segsum import SegmentSum
 from slam_plus_plus_tpu_torch.parallel.collectives import Collectives
 
 
@@ -70,7 +71,8 @@ class DistributedBlockCholeskySolver(BlockCholeskySolver):
             sel = np.flatnonzero((lv.p_dst >= bounds[r]) & (lv.p_dst < bounds[r + 1]))
             self._shards.append(dict(u_idx=u_idx, u_mask=u_mask, pa=t(lv.pa[sel]),
                                      pb=t(lv.pb[sel]), p_flip=t(lv.p_flip[sel]),
-                                     p_dst=t(lv.p_dst[sel])))
+                                     fill_sum=SegmentSum(lv.p_dst[sel], lv.K_next,
+                                                         self.device)))
 
     def factor(self, blocks) -> BlockCholeskyFactor:
         """Factor planar blocks [K, B*B] (the caller's pair order, the same
@@ -99,9 +101,7 @@ class DistributedBlockCholeskySolver(BlockCholeskySolver):
             if lv.has_fill:
                 prod = planar.bmm_A_Bt(W[sh["pa"]], U[sh["pb"]], B, B, B)
                 prod = torch.where(sh["p_flip"][:, None], planar.btranspose(prod, B, B), prod)
-                part = torch.zeros((lv.K_next, B * B), dtype=H.dtype, device=H.device)
-                part.index_add_(0, sh["p_dst"], prod)
-                (fill,) = self.comm.sum("fill", part)
+                (fill,) = self.comm.sum("fill", sh["fill_sum"](prod))
                 Hn = Hn - fill
             H = Hn
             c_invs.append(c_inv)

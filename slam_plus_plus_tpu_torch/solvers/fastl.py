@@ -60,6 +60,7 @@ from slam_plus_plus_tpu_torch.linalg.block_cholesky import BlockCholeskySolver
 from slam_plus_plus_tpu_torch.linalg.incremental_cholesky import IncrementalCholesky
 from slam_plus_plus_tpu_torch.marginals.covariance import IncrementalMarginals
 from slam_plus_plus_tpu_torch.models.types import EDGE_TYPES, VERTEX_TYPES
+from slam_plus_plus_tpu_torch.ops.segsum import index_add_ordered
 from slam_plus_plus_tpu_torch.solvers.native_engine import NativeReplay, check_supported
 
 #: edges of one type per omega batch; larger pending batches are chunked
@@ -290,7 +291,7 @@ class FastLSolver:
         padded batch of one edge type at the current states: its Hessian
         blocks, less the activation's unit pivot on each new vertex's
         diagonal, transposed where stored swapped, scaled by outer0 and
-        scatter-added into H (level-0 rows) and eta0, in place.  Returns the
+        added into H (level-0 rows) and eta0, in place.  Returns the
         scaled deltas [C*cap, B*B] in contribution-major order."""
         asm = self.asm
         plan = asm.plan_of[en]
@@ -314,9 +315,11 @@ class FastLSolver:
             vals.append(Hblk)
         valid = ix["valid"]
         scaled = (torch.stack(vals) * valid[None, :, None]).reshape(-1, B * B) * outer0[ix["pos"]]
-        H.index_add_(0, ix["pos"], scaled)
+        # edges of a batch that share a block add in batch order, on the card
+        # as on the CPU (a fixed order: ops/segsum.py)
+        index_add_ordered(H, ix["pos"], scaled)
         eta_vals = torch.stack(list(gs)) * valid[None, :, None]
-        eta0.index_add_(0, ix["cslot"].reshape(-1), eta_vals.reshape(-1, B))
+        index_add_ordered(eta0, ix["cslot"].reshape(-1), eta_vals.reshape(-1, B))
         return scaled
 
     # ------------------------------------------------------------------

@@ -16,6 +16,9 @@ CNonlinearSolver_Lambda_LM, include/slam/NonlinearSolver_Lambda_LM.h:97-226,
         bad:  alpha *= nu; nu *= 2; x <- x_saved;
               if fail: fail -= 1; max_iters += 1
 
+``SolverSettings.damping_init`` replaces the derived initial alpha (the
+JAX package's ``SolverConfig.damping_init``).
+
 Each trial (damp, the GN solver's linear solve — the dense or the
 sparse-reduced Schur, the dense factor or the block Cholesky —, ⊞,
 re-assembly at the new point, the rho scalars) runs on the device and ends
@@ -29,9 +32,13 @@ from __future__ import annotations
 
 import math
 import time
+from typing import Optional
+
 import torch
 
 from slam_plus_plus_tpu_torch.assembly.assembler import BlockSystem
+from slam_plus_plus_tpu_torch.config import SolverSettings
+from slam_plus_plus_tpu_torch.graph.system import GraphSystem
 from slam_plus_plus_tpu_torch.solvers.gauss_newton import GaussNewtonSolver
 
 
@@ -75,6 +82,8 @@ class LevenbergMarquardtSolver(GaussNewtonSolver):
         base = asm.assemble(states)
 
         alpha = float(base.max_hdiag) * self.TAU
+        if self.settings.damping_init:
+            alpha = self.settings.damping_init
         nu = 2.0
         fail = 10
         last_error = self.initial_chi2 = float(base.chi2)
@@ -118,3 +127,10 @@ class LevenbergMarquardtSolver(GaussNewtonSolver):
         self.timing["optimize"] = time.perf_counter() - t0
         return chi2, n_iters
 
+
+def optimize_lm(system: GraphSystem, *, device, settings: Optional[SolverSettings] = None,
+                max_iterations: int = 5, dx_threshold: float = 0.01, verbose: bool = False):
+    """Build a LevenbergMarquardtSolver over system and run it: (final
+    chi2, iterations), the states written back (the JAX ``optimize_lm``)."""
+    solver = LevenbergMarquardtSolver(system, device=device, settings=settings)
+    return solver.optimize(max_iterations, dx_threshold, verbose=verbose)
