@@ -53,6 +53,7 @@ from slam_plus_plus_tpu_torch.models.types import EDGE_TYPES, VERTEX_TYPES
 from slam_plus_plus_tpu_torch.ops.p2c import p2c_edge_terms
 from slam_plus_plus_tpu_torch.ops.segsum import SegmentSum
 from slam_plus_plus_tpu_torch.robust.losses import LOSSES
+from slam_plus_plus_tpu_torch.utils.timer import span
 
 
 class BlockSystem(NamedTuple):
@@ -480,12 +481,16 @@ class Assembler:
     # ------------------------------------------------------------------
 
     def snapshot_states(self, system: GraphSystem) -> Dict[str, torch.Tensor]:
-        return self.states_from_numpy(
-            {t: system.vertex_stores[t].data for t in self.type_names})
+        """The system's states uploaded to this assembler's device."""
+        with span("asm.snapshot"):
+            return self.states_from_numpy(
+                {t: system.vertex_stores[t].data for t in self.type_names})
 
     def writeback_states(self, system: GraphSystem, states) -> None:
-        for t, arr in self.states_to_numpy(states).items():
-            system.vertex_stores[t].states[:system.vertex_stores[t].n] = arr
+        """states read back into the system (a device read)."""
+        with span("asm.writeback"):
+            for t, arr in self.states_to_numpy(states).items():
+                system.vertex_stores[t].states[:system.vertex_stores[t].n] = arr
 
     def states_from_numpy(self, arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """{type: numpy [n, state_dim]} -> states on this assembler's device."""
@@ -627,7 +632,8 @@ class Assembler:
         return BlockSystem(pp, pl, ll, eta_p, eta_l, chi2, max_hdiag)
 
     def assemble(self, states) -> BlockSystem:
-        return self._finalize(*self._edge_sums(states))
+        with span("asm.assemble"):
+            return self._finalize(*self._edge_sums(states))
 
     def chi2(self, states, edge_data=None) -> torch.Tensor:
         """Total chi2 through each edge type's own batched residual, or its

@@ -41,6 +41,7 @@ import torch
 
 from slam_plus_plus_tpu_torch.ops import planar
 from slam_plus_plus_tpu_torch.ops.segsum import SegmentSum
+from slam_plus_plus_tpu_torch.utils.timer import span
 
 
 # ----------------------------------------------------------------------
@@ -296,7 +297,10 @@ def _equilibrated_cholesky(dense):
     for ridge in RIDGE_LADDER:
         L, info = torch.linalg.cholesky_ex(A + ridge * torch.eye(
             A.shape[0], dtype=A.dtype, device=A.device))
-        if bool((info == 0) & torch.isfinite(L).all()):
+        ok = (info == 0) & torch.isfinite(L).all()
+        with span("host_sync"):
+            ok = bool(ok)
+        if ok:
             break
     else:
         L = torch.full_like(A, float("nan"))
@@ -410,28 +414,29 @@ class BlockCholeskySolver:
         B = self.B
         c_invs, Ws = [], []
         f32 = H.dtype == torch.float32
-        for lv in self._levels:
-            C = H[lv.elim_diag_idx]
-            if f32:
-                # depth guard: a pivot block drifting near-singular under
-                # round-off makes the inverse explode; a relative ridge
-                # bounds its condition (the PCG corrects the solve)
-                dmean = torch.mean(torch.abs(planar.bdiag(C, B)), dim=1)
-                C = planar.badd_diag(C, 1e-5 * torch.clamp_min(dmean, 1e-30), B)
-            c_inv = planar.binv(C, B)
-            U0 = H[lv.u_src]
-            U = torch.where(lv.u_flip[:, None], planar.btranspose(U0, B, B), U0)
-            W = planar.bmm(U, c_inv[lv.u_elim], B, B, B)
-            Hn = torch.zeros((lv.K_next, B * B), dtype=H.dtype, device=H.device)
-            Hn[lv.carry_dst] = H[lv.carry_src]
-            prod = None
-            if lv.has_fill:
-                prod = planar.bmm_A_Bt(W[lv.pa], U[lv.pb], B, B, B)
-                prod = torch.where(lv.p_flip[:, None], planar.btranspose(prod, B, B), prod)
-                Hn = Hn - lv.fill_sum(prod)
-            if trace is not None:
-                trace.append((H, prod))
-            H = Hn
+        for li, lv in enumerate(self._levels):
+            with span("chol.level", level=li, phase="factor"):
+                C = H[lv.elim_diag_idx]
+                if f32:
+                    # depth guard: a pivot block drifting near-singular under
+                    # round-off makes the inverse explode; a relative ridge
+                    # bounds its condition (the PCG corrects the solve)
+                    dmean = torch.mean(torch.abs(planar.bdiag(C, B)), dim=1)
+                    C = planar.badd_diag(C, 1e-5 * torch.clamp_min(dmean, 1e-30), B)
+                c_inv = planar.binv(C, B)
+                U0 = H[lv.u_src]
+                U = torch.where(lv.u_flip[:, None], planar.btranspose(U0, B, B), U0)
+                W = planar.bmm(U, c_inv[lv.u_elim], B, B, B)
+                Hn = torch.zeros((lv.K_next, B * B), dtype=H.dtype, device=H.device)
+                Hn[lv.carry_dst] = H[lv.carry_src]
+                prod = None
+                if lv.has_fill:
+                    prod = planar.bmm_A_Bt(W[lv.pa], U[lv.pb], B, B, B)
+                    prod = torch.where(lv.p_flip[:, None], planar.btranspose(prod, B, B), prod)
+                    Hn = Hn - lv.fill_sum(prod)
+                if trace is not None:
+                    trace.append((H, prod))
+                H = Hn
             c_invs.append(c_inv)
             Ws.append(W)
         return H, c_invs, Ws
@@ -452,24 +457,26 @@ class BlockCholeskySolver:
         x = x_bottom  # [n_bottom, B, k]
         k = x.shape[2]
         for li in range(len(self._levels) - 1, -1, -1):
-            lv = self._levels[li]
-            # x_e = C^-1 eta_e - sum_u W_u^T x_rest(u)
-            corr = _bmm_t(Ws[li], x[lv.u_rest_next])
-            x_e = torch.bmm(c_invs[li].reshape(-1, B, B), etas[li]) - lv.elim_sum(corr)
-            xk = torch.zeros((lv.n, B, k), dtype=x.dtype, device=x.device)
-            xk[lv.rest_orig] = x
-            xk[lv.elim_orig] = x_e
-            x = xk
+            with span("chol.level", level=li, phase="up"):
+                lv = self._levels[li]
+                # x_e = C^-1 eta_e - sum_u W_u^T x_rest(u)
+                corr = _bmm_t(Ws[li], x[lv.u_rest_next])
+                x_e = torch.bmm(c_invs[li].reshape(-1, B, B), etas[li]) - lv.elim_sum(corr)
+                xk = torch.zeros((lv.n, B, k), dtype=x.dtype, device=x.device)
+                xk[lv.rest_orig] = x
+                xk[lv.elim_orig] = x_e
+                x = xk
         return x
 
     # -- public ----------------------------------------------------------
 
     def factor(self, blocks) -> BlockCholeskyFactor:
         """Factor planar blocks [K, B*B] given in the caller's pair order."""
-        H = blocks[self._input_perm]
-        sv, outer = self._jacobi_scale(H)
-        Hb, c_invs, Ws = self._descend(H * outer)
-        L, s = _equilibrated_cholesky(self._bottom_dense(Hb))
+        with span("chol.factor"):
+            H = blocks[self._input_perm]
+            sv, outer = self._jacobi_scale(H)
+            Hb, c_invs, Ws = self._descend(H * outer)
+            L, s = _equilibrated_cholesky(self._bottom_dense(Hb))
         return BlockCholeskyFactor(tuple(c_invs), tuple(Ws), L, s, sv)
 
     def solve_with_factor(self, f: BlockCholeskyFactor, eta):
@@ -477,18 +484,20 @@ class BlockCholeskySolver:
         [N, B, k] -> dx [N, B, k] in one descent and one ascent."""
         B = self.B
         cols = eta.dim() == 3
-        eta = (eta if cols else eta[:, :, None]) * f.s_vert[:, :, None]
-        k = eta.shape[2]
-        etas = []
-        for lv, W in zip(self._levels, f.Ws):
-            eta_E = eta[lv.elim_orig]
-            etas.append(eta_E)
-            corr = torch.bmm(W.reshape(-1, B, B), eta_E[lv.u_elim])
-            eta = eta[lv.rest_orig] - lv.rest_sum(corr)
-        nb = self.plan.n_bottom * B
-        xb = _bottom_solve(f.L_bottom, f.scale, eta.reshape(nb, k))
-        dx = self._ascend(xb.reshape(self.plan.n_bottom, B, k), f.c_invs, f.Ws, etas)
-        dx = dx * f.s_vert[:, :, None]
+        with span("chol.solve"):
+            eta = (eta if cols else eta[:, :, None]) * f.s_vert[:, :, None]
+            k = eta.shape[2]
+            etas = []
+            for li, (lv, W) in enumerate(zip(self._levels, f.Ws)):
+                with span("chol.level", level=li, phase="down"):
+                    eta_E = eta[lv.elim_orig]
+                    etas.append(eta_E)
+                    corr = torch.bmm(W.reshape(-1, B, B), eta_E[lv.u_elim])
+                    eta = eta[lv.rest_orig] - lv.rest_sum(corr)
+            nb = self.plan.n_bottom * B
+            xb = _bottom_solve(f.L_bottom, f.scale, eta.reshape(nb, k))
+            dx = self._ascend(xb.reshape(self.plan.n_bottom, B, k), f.c_invs, f.Ws, etas)
+            dx = dx * f.s_vert[:, :, None]
         return dx if cols else dx[:, :, 0]
 
     def solve(self, blocks, eta):

@@ -51,6 +51,7 @@ from slam_plus_plus_tpu_torch.linalg.block_cholesky import (
     BlockCholeskyFactor, BlockCholeskySolver, _equilibrated_cholesky)
 from slam_plus_plus_tpu_torch.ops import planar
 from slam_plus_plus_tpu_torch.ops.segsum import SegmentSum, segment_order, segment_sum
+from slam_plus_plus_tpu_torch.utils.timer import span
 
 #: a step's omega delta batch, in contributions: a larger batch (only after
 #: a long quiet stretch) takes the full redescent
@@ -333,18 +334,34 @@ class IncrementalCholesky:
         numpy, so a caller can run it for solve point k+1 while the device
         executes step k.  Returns (seg, buf, bot_sel, bot_h) or None on
         capacity overflow."""
-        all_pos = np.concatenate(dirty_pos)
-        if len(all_pos) > OMEGA_CAP:
-            return None
-        bundles, D_bot = self._host_walk(dirty_pos)
-        if bundles is None:
-            return None
-        buf, bot_sel, bot_h = self._pack(bundles, D_bot)
-        # each omega contribution -> its position in the level-0 dirty list
-        # (duplicates sum); unpadded
-        D0 = bundles[0]["D"] if self.plan.levels else D_bot
-        seg = np.searchsorted(D0, all_pos)
+        with span("inc.prepare_host"):
+            all_pos = np.concatenate(dirty_pos)
+            if len(all_pos) > OMEGA_CAP:
+                return None
+            bundles, D_bot = self._host_walk(dirty_pos)
+            if bundles is None:
+                return None
+            buf, bot_sel, bot_h = self._pack(bundles, D_bot)
+            # each omega contribution -> its position in the level-0 dirty
+            # list (duplicates sum); unpadded
+            D0 = bundles[0]["D"] if self.plan.levels else D_bot
+            seg = np.searchsorted(D0, all_pos)
         return (seg, buf, bot_sel, bot_h)
+
+    def dirty_blocks(self, host_packed) -> int:
+        """Pattern blocks a step recomputes: the dirty pairs of every level
+        and of the bottom, from a prepare_host result; every block of the
+        pattern for None (the full redescent)."""
+        if host_packed is None:
+            return self.KH
+        seg, buf, bot_sel, _bot_h = host_packed
+        n = int(np.count_nonzero(bot_sel != self.KB))
+        if self.plan.levels:
+            # level 0's dirty list, which seg indexes, and the deeper levels'
+            lo, hi = self._slots["d_pos"]
+            n += int(seg.max()) + 1 if len(seg) else 0
+            n += int(np.count_nonzero(buf[1:, lo:hi] != self.H_sink))
+        return n
 
     # ------------------------------------------------------------------
     # batched host walks: the whole replay's solve schedule is host-static
@@ -735,17 +752,19 @@ class IncrementalCholesky:
         capacity overflow, with the stores untouched (the caller takes the
         full redescent).  stores['H'] must already hold the omega deltas at
         level 0.  host_packed: a precomputed prepare_host result."""
-        if host_packed is IncrementalCholesky._NOT_PREPARED:
-            host_packed = self.prepare_host(dirty_pos)
-        if host_packed is None:
-            return False
-        omega_vals = torch.cat(dirty_vals) if len(dirty_vals) > 1 else dirty_vals[0]
-        npad = OMEGA_CAP - omega_vals.shape[0]
-        if npad:
-            omega_vals = torch.cat([omega_vals, omega_vals.new_zeros((npad, self.B * self.B))])
-        seg, buf, bot_sel, bot_h = self.upload(host_packed, OMEGA_CAP)
-        self._dirty_scan(stores, omega_vals, seg, buf, bot_sel, bot_h)
-        stores["H0"] = stores["H"]
+        with span("inc.refresh"):
+            if host_packed is IncrementalCholesky._NOT_PREPARED:
+                host_packed = self.prepare_host(dirty_pos)
+            if host_packed is None:
+                return False
+            omega_vals = torch.cat(dirty_vals) if len(dirty_vals) > 1 else dirty_vals[0]
+            npad = OMEGA_CAP - omega_vals.shape[0]
+            if npad:
+                omega_vals = torch.cat([omega_vals,
+                                        omega_vals.new_zeros((npad, self.B * self.B))])
+            seg, buf, bot_sel, bot_h = self.upload(host_packed, OMEGA_CAP)
+            self._dirty_scan(stores, omega_vals, seg, buf, bot_sel, bot_h)
+            stores["H0"] = stores["H"]
         return True
 
     def step(self, stores, eta0, dirty_pos: List[np.ndarray], dirty_vals,
@@ -796,5 +815,6 @@ class IncrementalCholesky:
 
     def solve_with_norm(self, stores, eta0):
         """(dx, |dx|), the norm a device scalar."""
-        dx = self.solve_refined(stores, eta0)
-        return dx, torch.linalg.vector_norm(dx)
+        with span("inc.solve"):
+            dx = self.solve_refined(stores, eta0)
+            return dx, torch.linalg.vector_norm(dx)

@@ -52,6 +52,7 @@ from slam_plus_plus_tpu_torch.linalg.block_cholesky import BlockCholeskySolver
 from slam_plus_plus_tpu_torch.linalg.dense import DenseScatter, cholesky_solve
 from slam_plus_plus_tpu_torch.ops import planar
 from slam_plus_plus_tpu_torch.ops.panel import build_panels
+from slam_plus_plus_tpu_torch.utils.timer import span
 
 #: reduced dims past which the JAX package forms the Schur complement
 #: block-sparsely (its sparse_reduced_limit)
@@ -342,17 +343,27 @@ class SchurSolver:
         return dx_p, planar.bmv(c_inv, system.eta_l - ut_dx, Bl, Bl)
 
     def _solve_sparse(self, system):
-        c_inv, u, w, rhs_p = self._sparse_w_rhs(system)
-        sc = self._sparse_sc(system, u, w)
-        return self._sparse_back_substitute(system, c_inv, u,
-                                            self._sparse_factor_solve(sc, rhs_p))
+        with span("schur.w_rhs"):
+            c_inv, u, w, rhs_p = self._sparse_w_rhs(system)
+        with span("schur.sc_fill"):
+            sc = self._sparse_sc(system, u, w)
+        with span("schur.factor"):
+            dx_p = self._sparse_factor_solve(sc, rhs_p)
+        with span("schur.back_substitute"):
+            return self._sparse_back_substitute(system, c_inv, u, dx_p)
 
     def solve(self, system):
         """(dx_p [Np, Bp], dx_l [Nl, Bl]) for a (damped) BlockSystem."""
-        if self.sparse_reduced:
-            return self._solve_sparse(system)
-        if not self.uniform:
-            return self._solve_flat(system)
-        c_inv, Ut, Wt = self._uniform_panels(system)
-        sc, rhs = self._reduce(system, Ut, Wt)
-        return self._back_substitute(system, c_inv, Ut, self._factor_solve(sc, rhs))
+        with span("schur.solve"):
+            if self.sparse_reduced:
+                return self._solve_sparse(system)
+            if not self.uniform:
+                return self._solve_flat(system)
+            with span("schur.w_rhs"):
+                c_inv, Ut, Wt = self._uniform_panels(system)
+            with span("schur.sc_fill"):
+                sc, rhs = self._reduce(system, Ut, Wt)
+            with span("schur.factor"):
+                dx_flat = self._factor_solve(sc, rhs)
+            with span("schur.back_substitute"):
+                return self._back_substitute(system, c_inv, Ut, dx_flat)

@@ -26,6 +26,10 @@ in ONE host sync that reads |dx|, the new chi2 and the rho denominator
 together (a float32 block Cholesky adds one read of its bottom factor's
 status).  ``solver._schur.sparse_reduced`` tells which Schur branch a BA
 problem takes.
+
+Tracer spans (utils/timer.py, off by default): ``lm.optimize`` around a
+run, ``lm.trial``, ``lm.update`` and ``host_sync`` (each read of a device
+value) in it; the assembler, the Schur and the block Cholesky add their own.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from slam_plus_plus_tpu_torch.assembly.assembler import BlockSystem
 from slam_plus_plus_tpu_torch.config import SolverSettings
 from slam_plus_plus_tpu_torch.graph.system import GraphSystem
 from slam_plus_plus_tpu_torch.solvers.gauss_newton import GaussNewtonSolver
+from slam_plus_plus_tpu_torch.utils.timer import span
 
 
 def damp_system(system: BlockSystem, alpha, pp_diag_ids) -> BlockSystem:
@@ -62,7 +67,8 @@ class LevenbergMarquardtSolver(GaussNewtonSolver):
         damped = damp_system(base, alpha, asm.pp_diag_ids_dev)
         dx_p, dx_l = self._solve(damped)
         dx_norm = torch.sqrt(torch.sum(dx_p * dx_p) + torch.sum(dx_l * dx_l))
-        new_states = asm.update(states, dx_p, dx_l)
+        with span("lm.update"):
+            new_states = asm.update(states, dx_p, dx_l)
         new_sys = asm.assemble(new_states)
         denom = (torch.sum(dx_p * (alpha * dx_p + base.eta_p)) +
                  torch.sum(dx_l * (alpha * dx_l + base.eta_l)))
@@ -76,17 +82,23 @@ class LevenbergMarquardtSolver(GaussNewtonSolver):
         Returns (final_chi2, iterations_run).  ``self.trial_log`` keeps
         (|dx|, trial chi2, rho denominator) of every trial of the run,
         ``self.initial_chi2`` the chi2 it started from."""
+        with span("lm.optimize"):
+            return self._optimize(max_iterations, dx_threshold, verbose)
+
+    def _optimize(self, max_iterations, dx_threshold, verbose):
         t0 = time.perf_counter()
         asm = self.asm
         states = asm.snapshot_states(self.system)
         base = asm.assemble(states)
 
-        alpha = float(base.max_hdiag) * self.TAU
+        with span("host_sync"):
+            alpha = float(base.max_hdiag) * self.TAU
         if self.settings.damping_init:
             alpha = self.settings.damping_init
         nu = 2.0
         fail = 10
-        last_error = self.initial_chi2 = float(base.chi2)
+        with span("host_sync"):
+            last_error = self.initial_chi2 = float(base.chi2)
         if verbose:
             print(f"alpha: {alpha:f}\ninitial chi2: {last_error:f}")
 
@@ -96,8 +108,11 @@ class LevenbergMarquardtSolver(GaussNewtonSolver):
         while it < max_iterations:
             it += 1
             n_iters += 1
-            new_states, new_sys, norm_d, err_d, den_d = self._trial(states, base, alpha)
-            dx_norm, error, denom = torch.stack([norm_d, err_d, den_d]).tolist()
+            with span("lm.trial"):
+                new_states, new_sys, norm_d, err_d, den_d = self._trial(states, base, alpha)
+                read = torch.stack([norm_d, err_d, den_d])
+            with span("host_sync"):
+                dx_norm, error, denom = read.tolist()
             self.trial_log.append((dx_norm, error, denom))
             if not math.isfinite(dx_norm):
                 break
@@ -122,7 +137,9 @@ class LevenbergMarquardtSolver(GaussNewtonSolver):
                     fail -= 1
                     max_iterations += 1
 
-        chi2 = float(asm.chi2(states))
+        chi2_dev = asm.chi2(states)
+        with span("host_sync"):
+            chi2 = float(chi2_dev)
         asm.writeback_states(self.system, states)
         self.timing["optimize"] = time.perf_counter() - t0
         return chi2, n_iters
