@@ -730,21 +730,38 @@ class IncrementalCholesky:
         stores["L"], stores["s"] = _equilibrated_cholesky(dense[:-1].reshape(self.nbB, self.nbB))
         return stores
 
-    def upload(self, host_packed, omega_n: Optional[int] = None):
-        """The packed walk on the device in one host-to-device copy: (seg
-        [n], buf [L, ROW], bot_sel, bot_h), int64.  omega_n pads seg to that
-        length with the dropped segment cap_d (the omega batch's fixed
-        size)."""
+    def packed_len(self, omega_n: int) -> int:
+        """Length of :meth:`pack`'s flat int64 layout for an omega batch of
+        omega_n contributions: seg [omega_n], buf [L, ROW], bot_sel, bot_h."""
+        return omega_n + max(len(self.plan.levels), 1) * self._row_len + 2 * self.cap_d
+
+    def pack(self, host_packed, out: np.ndarray) -> None:
+        """The packed walk written into out (int64, :meth:`packed_len` of
+        its omega batch long), seg padded to that batch with the dropped
+        segment cap_d."""
         seg, buf, bot_sel, bot_h = host_packed
-        n = len(seg) if omega_n is None else omega_n
-        seg_pad = np.full(n, self.cap_d, dtype=np.int64)
-        seg_pad[:len(seg)] = seg
-        flat = torch.from_numpy(np.concatenate(
-            [seg_pad, buf.reshape(-1), bot_sel, bot_h]).astype(np.int64))
-        flat = flat.to(self.device, non_blocking=True)
-        nb = buf.size
-        return (flat[:n], flat[n:n + nb].view(buf.shape),
-                flat[n + nb:n + nb + self.cap_d], flat[n + nb + self.cap_d:])
+        n = len(out) - buf.size - 2 * self.cap_d
+        out[:len(seg)] = seg
+        out[len(seg):n] = self.cap_d
+        out[n:n + buf.size] = buf.reshape(-1)
+        out[n + buf.size:n + buf.size + self.cap_d] = bot_sel
+        out[n + buf.size + self.cap_d:] = bot_h
+
+    def unpack(self, flat, omega_n: int):
+        """(seg [omega_n], buf [L, ROW], bot_sel, bot_h): views of a packed
+        walk that lies on the device."""
+        nb = max(len(self.plan.levels), 1) * self._row_len
+        return (flat[:omega_n], flat[omega_n:omega_n + nb].view(-1, self._row_len),
+                flat[omega_n + nb:omega_n + nb + self.cap_d],
+                flat[omega_n + nb + self.cap_d:omega_n + nb + 2 * self.cap_d])
+
+    def upload(self, host_packed, omega_n: int):
+        """The packed walk on the device in one host-to-device copy: (seg
+        [omega_n], buf [L, ROW], bot_sel, bot_h), int64, seg padded as
+        :meth:`pack` pads it."""
+        flat = np.empty(self.packed_len(omega_n), dtype=np.int64)
+        self.pack(host_packed, flat)
+        return self.unpack(torch.from_numpy(flat).to(self.device, non_blocking=True), omega_n)
 
     def refactor_dirty(self, stores, dirty_pos: List[np.ndarray], dirty_vals,
                        host_packed=_NOT_PREPARED) -> bool:

@@ -97,8 +97,9 @@ def binv(a, B: int):
     B2 = B - B1
 
     def sub(i0, j0, Br, Bc):
-        idx = [(i0 + i) * B + (j0 + j) for i in range(Br) for j in range(Bc)]
-        return a[:, idx]
+        # a strided view, copied: no index tensor to upload (a CUDA graph
+        # cannot capture that upload)
+        return a.reshape(-1, B, B)[:, i0:i0 + Br, j0:j0 + Bc].reshape(-1, Br * Bc)
 
     A11 = sub(0, 0, B1, B1)
     A12 = sub(0, B1, B1, B2)

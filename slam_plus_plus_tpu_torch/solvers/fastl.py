@@ -36,14 +36,19 @@ The engine runs float64 on both devices (config.float64_dtype);
 aids.  Host syncs: one read of |dx| per iteration (and, in float32, the
 bottom factor's ridge-ladder status per factorization).  The whole
 replay's reachability walks are done at construction (the solve schedule
-is host-static); everything a solve point uploads goes in one copy.
+is host-static).  A solve point whose walk fits the capacities runs
+through the solve-point runner (solvers/fastl_graph.py), which uploads
+everything the point needs in one copy and, on a CUDA device in float64,
+replays the point's omega, dirty refresh and solve as one CUDA graph.
 
 Tracer spans (utils/timer.py, off by default): ``fastl.replay`` around a
 run, ``fastl.solve_point`` around each solve point, and inside them
 ``fastl.flush``, ``fastl.omega``, ``inc.refresh``, ``inc.solve``,
-``fastl.update``, ``fastl.rebuild`` and ``host_sync`` (each read of a device
-value); counters ``fastl.pending_edges`` and ``inc.dirty_blocks`` per solve
-point.
+``fastl.pack``, ``fastl.graph_replay``, ``fastl.update``, ``fastl.rebuild``
+and ``host_sync`` (each read of a device value); counters
+``fastl.pending_edges`` and ``inc.dirty_blocks`` per solve point, and one of
+``fastl.graph_replays`` or ``fastl.graph_eager.<reason>`` per solve point
+(``fastl.graph_captures`` per capture).
 
 ``native=True`` (on the CPU only) builds the host half alone — the
 assembler, the plan, the steps and the omega metadata — and hands the
@@ -68,6 +73,7 @@ from slam_plus_plus_tpu_torch.linalg.incremental_cholesky import IncrementalChol
 from slam_plus_plus_tpu_torch.marginals.covariance import IncrementalMarginals
 from slam_plus_plus_tpu_torch.models.types import EDGE_TYPES, VERTEX_TYPES
 from slam_plus_plus_tpu_torch.ops.segsum import index_add_ordered
+from slam_plus_plus_tpu_torch.solvers.fastl_graph import SolvePointRunner
 from slam_plus_plus_tpu_torch.solvers.native_engine import NativeReplay, check_supported
 from slam_plus_plus_tpu_torch.utils.timer import count, enabled, span
 
@@ -169,6 +175,7 @@ class FastLSolver:
         self._build_replay_plan()
 
         self.inc = None
+        self._runner = None    # the solve points' runner, built by the first replay
         self._native = NativeReplay(self) if native else None
         self._prepared_all: Dict[int, object] = {}
         if native:
@@ -274,10 +281,17 @@ class FastLSolver:
         return [np.stack([p[chunk] for p in self._omega_meta[en][0]]).reshape(-1)
                 for (en, chunk, _nmc, _valid) in self._pending_chunks(pending)]
 
-    def _upload_chunk(self, en, chunk, nmc, valid):
-        """One omega batch's host indices on the device in one copy: the
-        edges, each slot's vertex and class slot, each contribution's
-        level-0 position and swap flag, the new-vertex mask and validity."""
+    def _chunk_sizes(self, en):
+        """The lengths of an omega batch's index parts, in _chunk_host's
+        order, for a batch of OMEGA_EDGE_CAP edges of type en."""
+        plan = self.asm.plan_of[en]
+        cap, ar, C = OMEGA_EDGE_CAP, len(plan.slot_local), len(plan.pp_contribs)
+        return [cap, ar * cap, ar * cap, C * cap, C * cap, ar * cap, cap]
+
+    def _chunk_host(self, en, chunk, nmc, valid):
+        """One omega batch's host indices, flat int64: the edges, each slot's
+        vertex and class slot, each contribution's level-0 position and swap
+        flag, the new-vertex mask and validity."""
         plan = self.asm.plan_of[en]
         pos, swaps = self._omega_meta[en]
         parts = ([chunk] + [loc[chunk] for loc in plan.slot_local]
@@ -285,14 +299,22 @@ class FastLSolver:
                  + [np.stack([p[chunk] for p in pos]).reshape(-1)]
                  + [np.stack([w[chunk] for w in swaps]).reshape(-1)]
                  + [nmc.T.reshape(-1), valid])
-        flat = torch.from_numpy(np.concatenate(parts).astype(np.int64)).to(
-            self.asm.device, non_blocking=True)
-        cap, ar, C = len(chunk), len(plan.slot_local), len(pos)
-        sizes = [cap, ar * cap, ar * cap, C * cap, C * cap, ar * cap, cap]
+        return np.concatenate(parts).astype(np.int64)
+
+    def _chunk_views(self, en, flat):
+        """The omega batch's indices as _omega takes them, from _chunk_host's
+        layout on the device."""
+        sizes = self._chunk_sizes(en)
+        cap, ar, C = sizes[0], sizes[1] // sizes[0], sizes[3] // sizes[0]
         eidx, local, cslot, posf, swap, new, valid = torch.split(flat, sizes)
         return dict(eidx=eidx, local=local.view(ar, cap), cslot=cslot.view(ar, cap),
                     pos=posf, swap=swap.view(C, cap).bool(),
                     new=new.view(ar, cap).to(self.asm.dtype), valid=valid.to(self.asm.dtype))
+
+    def _upload_chunk(self, en, chunk, nmc, valid):
+        """One omega batch's host indices on the device in one copy."""
+        return self._chunk_views(en, torch.from_numpy(self._chunk_host(en, chunk, nmc, valid)).to(
+            self.asm.device, non_blocking=True))
 
     def _omega(self, en, states, H, eta0, outer0, ix):
         """Calculate_Omega (reference NonlinearSolver_FastL.h:698-743) for a
@@ -387,19 +409,11 @@ class FastLSolver:
         dx = self.chol.solve_with_factor(stores["factor"], eta0)
         return dx, torch.linalg.vector_norm(dx)
 
-    def _solve_point(self, stores, eta0, states, chunk, hp):
-        """The fast path of every_n = 1 (one omega batch of one type): omega,
-        dirty refactorization and the refined solve, with every index the
-        point needs uploaded in two copies."""
-        en, chunk, nmc, valid = chunk
-        with span("fastl.omega"):
-            ix = self._upload_chunk(en, chunk, nmc, valid)
-            scaled = self._omega(en, states, stores["H"], eta0, stores["outer0"], ix)
-        with span("inc.refresh"):
-            seg, buf, bot_sel, bot_h = self.inc.upload(hp)
-            self.inc._dirty_scan(stores, scaled, seg, buf, bot_sel, bot_h)
-        stores["H0"] = stores["H"]
-        return self.inc.solve_with_norm(stores, eta0)
+    def _solve_point(self, chunks, hp):
+        """A solve point whose walk fits the capacities: the omega batches,
+        the dirty refactorization and the refined solve on the runner's held
+        stores, eta0 and states (a CUDA graph replay on the card)."""
+        return self._runner.run(chunks, hp)
 
     # ------------------------------------------------------------------
     # marginals maintained inside the loop
@@ -505,7 +519,23 @@ class FastLSolver:
         """run() on the torch engine: (chi2, iterations), ``stats`` set."""
         t0 = time.perf_counter()
         asm = self.asm
-        states = asm.snapshot_states(self.system)
+        if self.inc is not None and (self._runner is None or self._runner.inc is not self.inc):
+            self._runner = SolvePointRunner(self)
+        runner = self._runner if self.inc is not None else None
+        if runner is not None:
+            runner.counts = dict.fromkeys(runner.counts, 0)    # this run's
+        # the runner holds the stores, eta0 and states its chain reads at
+        # fixed addresses: fresh ones are copied into them
+        hold = runner.hold if runner is not None else (lambda st, eta: (st, eta))
+        hold_states = runner.hold_states if runner is not None else (lambda st: st)
+        n_eager = 0     # solve points that took no fast path
+
+        def eager(reason):
+            nonlocal n_eager
+            n_eager += 1
+            count(f"fastl.graph_eager.{reason}")
+
+        states = hold_states(asm.snapshot_states(self.system))
         counts = {n: 0 for n in asm.edge_data}
         self._act_queue: List[tuple] = []
 
@@ -536,7 +566,7 @@ class FastLSolver:
 
             if stores is None:
                 states = self._flush_activations(states)
-                stores, eta0 = self._init_stores(states, dict(counts), step["n_active"])
+                stores, eta0 = hold(*self._init_stores(states, dict(counts), step["n_active"]))
                 pending.clear()
                 n_full += 1
 
@@ -560,11 +590,14 @@ class FastLSolver:
                 if reassemble_every and solves_since_rebuild >= reassemble_every:
                     # float32 drift cleanup: the pending edges are already in
                     # counts, so the rebuild absorbs them
-                    stores, eta0 = self._init_stores(states, dict(counts), step["n_active"])
+                    stores, eta0 = hold(*self._init_stores(states, dict(counts),
+                                                           step["n_active"]))
                     pending.clear()
                     n_full += 1
                     solves_since_rebuild = 0
-                if pending:
+                if not pending:
+                    eager("no_omega")
+                else:
                     hp = chunks = None
                     if self.inc is not None:
                         with span("fastl.omega"):
@@ -574,22 +607,17 @@ class FastLSolver:
                             hp = self.inc.prepare_host(self._pending_pos(pending))
                         if enabled():
                             count("inc.dirty_blocks", self.inc.dirty_blocks(hp))
-                    if self.inc is not None and len(chunks) == 1 and hp is not None:
-                        fused_dx = self._solve_point(stores, eta0, states, chunks[0], hp)
+                    if hp is not None:
+                        fused_dx = self._solve_point(chunks, hp)
                     else:
-                        dirty_pos, dirty_vals = self._apply_pending(stores, eta0, states, pending)
+                        # the full redescent: refresh="full", or a walk past
+                        # the capacities (counted)
+                        eager("full_refresh" if self.inc is None else "overflow")
+                        self._apply_pending(stores, eta0, states, pending)
+                        stores, eta0 = hold(self._refactor(stores), eta0)
                         if self.inc is not None:
-                            res = self.inc.step(stores, eta0, dirty_pos, dirty_vals,
-                                                host_packed=hp)
-                            if res is None:   # dirty-capacity overflow
-                                stores = self._refactor(stores)
-                                n_full += 1
-                                n_overflows += 1
-                            else:
-                                stores, fdx, fnorm = res
-                                fused_dx = (fdx, fnorm)
-                        else:
-                            stores = self._refactor(stores)
+                            n_full += 1
+                            n_overflows += 1
                     pending.clear()
                     n_steps_applied += 1
                     # the device is executing the step just dispatched: walk the
@@ -615,11 +643,12 @@ class FastLSolver:
                         break  # discard dx, keep the frozen linearization
                     # push: the linearization moves -> relinearize + refactor
                     with span("fastl.update"):
-                        states = asm.update(states, dx, None)
+                        states = hold_states(asm.update(states, dx, None))
                     n_pushes += 1
                     pushed = True
                     lin_dirty = False
-                    stores, eta0 = self._init_stores(states, dict(counts), step["n_active"])
+                    stores, eta0 = hold(*self._init_stores(states, dict(counts),
+                                                           step["n_active"]))
                     n_full += 1
                     solves_since_rebuild = 0
             self._refresh_marginals(stores, states, pushed)
@@ -632,7 +661,7 @@ class FastLSolver:
         if stores is not None and pending:
             self._apply_pending(stores, eta0, states, pending)
             pending.clear()
-            stores = self._refactor(stores)
+            stores, eta0 = hold(self._refactor(stores), eta0)
             lin_dirty = True
 
         # the reference reports chi2 / the solution at the linearization
@@ -644,7 +673,7 @@ class FastLSolver:
                 finite = bool(torch.isfinite(dx).all())
             if finite:
                 with span("fastl.update"):
-                    states = asm.update(states, dx, None)
+                    states = hold_states(asm.update(states, dx, None))
 
         chi2_dev = asm.chi2_active(states, counts)
         with span("host_sync"):
@@ -654,5 +683,8 @@ class FastLSolver:
         self.stats = dict(steps=len(self.steps), solve_points=n_solves,
                           omega_steps=n_steps_applied, pushes=n_pushes,
                           full_refactors=n_full, dirty_overflows=n_overflows,
-                          iters=total_iters, elapsed=self.elapsed)
+                          iters=total_iters, elapsed=self.elapsed,
+                          graph_replays=runner.counts["replays"] if runner else 0,
+                          graph_captures=runner.counts["captures"] if runner else 0,
+                          graph_eager=n_eager + (runner.counts["eager"] if runner else 0))
         return chi2, total_iters

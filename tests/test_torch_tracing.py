@@ -131,11 +131,19 @@ def test_fastl_replay_spans(manhattan, refresh, dx_threshold):
     per_point = [c for c in counts if c.name == "fastl.pending_edges"]
     assert len(per_point) == len(points) and {c.span for c in per_point} == in_points
     dirty = [c for c in counts if c.name == "inc.dirty_blocks"]
+    # one graph record a solve point: replayed, or eager with its reason
+    graph = [c for c in counts if c.name.startswith("fastl.graph_")]
+    assert sorted(c.span for c in graph) == sorted(in_points)
+    assert fl.stats["graph_replays"] + fl.stats["graph_eager"] == len(points)
+    reasons = {c.name.rsplit(".", 1)[1] for c in graph}
     if refresh == "dirty":
         assert len(dirty) == fl.stats["omega_steps"] and all(c.n > 0 for c in dirty)
         assert _names(spans, "inc.refresh") and _names(spans, "inc.solve")
+        assert len(_names(spans, "fastl.pack")) == sum(c.name.endswith(".cpu") for c in graph)
+        assert "cpu" in reasons and reasons <= {"cpu", "overflow", "no_omega"}
     else:
         assert not dirty and not _names(spans, "inc.refresh")
+        assert reasons <= {"full_refresh", "no_omega"}
     levels = _names(spans, "chol.level")
     assert levels and {s.attrs["phase"] for s in levels} >= {"factor", "down", "up"}
 
