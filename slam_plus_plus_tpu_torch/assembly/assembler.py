@@ -149,6 +149,13 @@ def _transpose_perm(B: int) -> List[int]:
     return [i * B + j for j in range(B) for i in range(B)]
 
 
+def uniform_padding_fits(E: int, E_padded: int) -> bool:
+    """edge_layout "auto"'s bound on the uniform layout: padding every
+    landmark to the longest track inflates the edge count by <= 1.5x
+    (+8192), the JAX package's bound."""
+    return E_padded <= 1.5 * E + 8192
+
+
 def type_classes(system: GraphSystem, settings: SolverSettings) -> Dict[str, str]:
     """Each vertex type's class: "l" where the landmark class is split off
     for Schur elimination, else "p".  schur_split "auto" splits only while
@@ -246,7 +253,7 @@ class Assembler:
         # a reshape-sum and each landmark's blocks are contiguous.
         # edge_layout "auto" takes it for a lone edge_p2c plan (mono BA: K1
         # and the uniform Schur solve consume it) while padding inflates the
-        # edge count by <= 1.5x (+8192), the JAX package's bound; "uniform"
+        # edge count by <= 1.5x (+8192, uniform_padding_fits); "uniform"
         # for every plan that observes exactly one landmark, unbounded (the
         # landmark-sharded BA, parallel/sharded_ba.py); "flat" keeps parse
         # order.  Dummies take the other slots of the plan's edge 0, so
@@ -266,7 +273,7 @@ class Assembler:
             Ms = {n: max(int(c.max()), 1) for n, c in counts.items()}
             E_old = sum(rp[2] for rp in raw_plans)
             E_new = E_old + sum(self.Nl * Ms[rp[0]] - rp[2] for rp in l_plans)
-            if lay == "uniform" or E_new <= 1.5 * E_old + 8192:
+            if lay == "uniform" or uniform_padding_fits(E_old, E_new):
                 self._uniform_counts = counts
                 for rp in l_plans:
                     ename, et, E, slot_local, slot_cslot, slot_class = rp

@@ -52,7 +52,7 @@ from slam_plus_plus_tpu_torch.linalg.block_cholesky import BlockCholeskySolver
 from slam_plus_plus_tpu_torch.linalg.dense import DenseScatter, cholesky_solve
 from slam_plus_plus_tpu_torch.ops import planar
 from slam_plus_plus_tpu_torch.ops.panel import build_panels
-from slam_plus_plus_tpu_torch.utils.timer import span
+from slam_plus_plus_tpu_torch.utils.timer import count, enabled, span
 
 #: reduced dims past which the JAX package forms the Schur complement
 #: block-sparsely (its sparse_reduced_limit)
@@ -80,6 +80,18 @@ def route_sparse_reduced(Np: int, Bp: int, Nl: int, Bl: int, Kpl: int,
             (n_reduced > sparse_reduced_limit or (panel_gb > 2.0 and density < 0.05)))
 
 
+def schur_route(Np: int, Bp: int, Nl: int, Bl: int, Kpl: int, uniform_channels: int,
+                dense_reduced=None, sparse_reduced_limit: int = SPARSE_REDUCED_LIMIT) -> str:
+    """The branch a Schur solve takes: "sparse" (``route_sparse_reduced``),
+    else "uniform" (K2's panels) when the uniform layout has one channel
+    and the two panels, counted at 4 bytes an element, fit
+    UNIFORM_PANEL_BYTES, else "flat"."""
+    if route_sparse_reduced(Np, Bp, Nl, Bl, Kpl, dense_reduced, sparse_reduced_limit):
+        return "sparse"
+    panel_bytes = 2 * Nl * Bl * Np * Bp * 4
+    return "uniform" if uniform_channels == 1 and panel_bytes <= UNIFORM_PANEL_BYTES else "flat"
+
+
 def _pick_chunk(Nl: int, np_bp: int, Bl: int, itemsize: int) -> int:
     """Landmark-chunk size keeping the two dense panels under
     CHUNK_PANEL_BYTES (the JAX package's rule, which counts 4 bytes per
@@ -94,11 +106,15 @@ class SchurSolver:
     """Schur solve bound to an Assembler's structure and device.
 
     dense_reduced / sparse_reduced_limit: the JAX package's constructor
-    arguments (``route_sparse_reduced``).  After construction,
-    ``sparse_reduced`` says whether SC is formed block-sparsely, and then
-    ``clique`` whether the clique path engaged, ``Ksc`` the number of SC
-    blocks and ``reduced_chol`` the block Cholesky of the reduced system
-    (its ``n_levels`` and ``plan.n_bottom``)."""
+    arguments (``route_sparse_reduced``).  After construction, ``route``
+    names the branch (``schur_route``), ``uniform`` says whether K2 builds
+    the panels, ``sparse_reduced`` whether SC is formed block-sparsely, and
+    then ``clique`` whether the clique path engaged, ``Ksc`` the number of
+    SC blocks and ``reduced_chol`` the block Cholesky of the reduced system
+    (its ``n_levels`` and ``plan.n_bottom``).  With the tracer on, each
+    solve counts ``schur.route.<route>``; the uniform branch times K2 in
+    the span ``schur.panels`` and counts the panels' bytes in
+    ``schur.panel_bytes``."""
 
     def __init__(self, asm, dense_reduced=None,
                  sparse_reduced_limit: int = SPARSE_REDUCED_LIMIT):
@@ -107,19 +123,19 @@ class SchurSolver:
         if Nl == 0 or asm.Kpl == 0:
             raise ValueError("Schur solver requires an eliminated class")
         self.n_reduced = Np * Bp
-        self.uniform = self.clique = False
-        self.sparse_reduced = route_sparse_reduced(Np, Bp, Nl, Bl, asm.Kpl, dense_reduced,
-                                                   sparse_reduced_limit)
-        if self.sparse_reduced:
-            self._build_sparse_reduced()
-            return
-        panel_bytes = 2 * Nl * Bl * self.n_reduced * 4
-        self._dense_pp = DenseScatter(asm.pp_rows, asm.pp_cols, Np, Bp, asm.device)
+        self.clique = False
         # K2 builds one uniform channel's panels; several channels (the
         # uniform layout of a mixed or ternary scene) take the flat branch,
         # which sums the blocks of repeated (camera, landmark) pairs
-        self.uniform = (asm.pl_uniform is not None and len(asm.pl_uniform) == 1
-                        and panel_bytes <= UNIFORM_PANEL_BYTES)
+        self.route = schur_route(Np, Bp, Nl, Bl, asm.Kpl, len(asm.pl_uniform or ()),
+                                 dense_reduced, sparse_reduced_limit)
+        self._route_counter = f"schur.route.{self.route}"
+        self.sparse_reduced = self.route == "sparse"
+        self.uniform = self.route == "uniform"
+        if self.sparse_reduced:
+            self._build_sparse_reduced()
+            return
+        self._dense_pp = DenseScatter(asm.pp_rows, asm.pp_cols, Np, Bp, asm.device)
         if not self.uniform:
             self._build_flat()
             return
@@ -160,7 +176,10 @@ class SchurSolver:
         # a transposed view of the H_pl blocks: K2 reads it through its strides
         u4 = (system.pl_blocks[self._pl_offset:self._pl_offset + Nl * M]
               .reshape(Nl, M, Bp, Bl).transpose(2, 3))
-        Ut, Wt = build_panels(u4, self._rows_dev, c_inv, Bl, Bp, Np)
+        with span("schur.panels"):
+            Ut, Wt = build_panels(u4, self._rows_dev, c_inv, Bl, Bp, Np)
+        if enabled():
+            count("schur.panel_bytes", Ut.nbytes + Wt.nbytes)
         return c_inv, Ut, Wt
 
     def _reduce(self, system, Ut, Wt):
@@ -355,6 +374,7 @@ class SchurSolver:
     def solve(self, system):
         """(dx_p [Np, Bp], dx_l [Nl, Bl]) for a (damped) BlockSystem."""
         with span("schur.solve"):
+            count(self._route_counter)
             if self.sparse_reduced:
                 return self._solve_sparse(system)
             if not self.uniform:
