@@ -13,7 +13,11 @@ it never falls back to the CPU.  Phases, each of which must pass:
      CUDA-event times of both beside each kernel's bound; K2 on the solver's
      strided view of its blocks, bitwise, at the bench shape and at a second
      one whose panel rows need several column windows and whose ranges start
-     off 16-byte lines (1000 points, 75 slots, 871 cameras);
+     off 16-byte lines (1000 points, 75 slots, 871 cameras); K3a
+     (clique_forward) and K3b (clique_back) at ring871's clique (527,480
+     points, 5 slots) and at venice-real's (100,000 points, 8 slots),
+     float32 and float64, each call bitwise the last, beside each one's
+     least time;
   3. a small scene assembled on the card (float32) against the CPU float64
      path, which the tests hold against the JAX package;
   4. the main path at full size: the bench scene (100 cameras, 8000 points,
@@ -48,7 +52,8 @@ it never falls back to the CPU.  Phases, each of which must pass:
      sparse-reduced Schur (sparse_reduced_limit=1), its clique and gathered
      paths on the card (float32) against the CPU's solve of the same float32
      lambda (1e-4 x scale) and the CPU float64 solve (2e-3 x scale: the JAX
-     package's float32 bottom ridge); (b) small intrinsics, stereo and
+     package's float32 bottom ridge), the clique path through K3 (one
+     launch each a solve); (b) small intrinsics, stereo and
      spheron files through LM (float32) and a stereo (-mfnsi 30) and a mono
      BA file through -dl (float64, config.float64_dtype), by the CLI's code
      path, final chi2 within 1e-4 of the CPU float64 run; (c) the
@@ -58,7 +63,8 @@ it never falls back to the CPU.  Phases, each of which must pass:
      reference binary's 323432.49, the trajectory against the reference's,
      ms per LM iteration over 3 more iterations, a stage split of one
      solve, peak device memory and a profile of one LM iteration; (d) K1
-     launched during that row and K2 not;
+     and K3 (K3a and K3b once an LM trial) launched during that row and K2
+     not;
   9. the rest of batch solving (no Pallas kernel lies on this path): small
      Sim(3) chain, inverse-distance Sim(3) BA and ROCV scenes solved on the
      card (in their route's dtype: float64 for the chain, float32 for the
@@ -253,6 +259,8 @@ BENCH_E, BENCH_NL, BENCH_M = 608000, 8000, 76     # uniform layout of that scene
 BENCH_MIN_OBS = 32                                # its least-observed landmark
 VENICE_E = 800000                                 # venice-real's slots: M = 8, no dummies
 K2_WIDE = (1000, 75, 871)     # Nl, M, cameras: several windows, odd M and cameras
+K3_RING871 = (527480, 5, 871)  # Nl, M, cameras: the benchmark's ba-ring871
+K3_VENICE = (100000, 8, 871)   # venice-real's clique (phase 8's row)
 HBM_BYTES_PER_S = 3.35e12                         # H100 SXM, NVIDIA's data sheet
 PEAK_FLOPS = {4: 67e12, 8: 34e12}                 # float32 / float64 outside tensor cores
 P2C_FLOPS_PER_SLOT = 420   # counted in csrc/p2c.cu; sin, cos, sqrt, division one each
@@ -299,6 +307,7 @@ def main() -> int:
     # ---- 2. kernels against their plain versions ---------------------------
     k1 = kernel_phase_p2c(torch, dev)
     k2 = kernel_phase_panels(torch, dev)
+    k3 = kernel_phase_clique(torch, dev)
 
     # ---- 3. small scene, card float32 against CPU float64 -------------------
     small_scene_check(torch, dev)
@@ -317,7 +326,7 @@ def main() -> int:
     t0 = time.perf_counter()
     sparse_schur_check(torch, dev)
     ba_family_rows(torch, dev)
-    venice_system = venice_row(torch, dev, card, k1)
+    venice_system = venice_row(torch, dev, card, k1, k3)
     print(f"phase 8 (the rest of batch BA): {time.perf_counter() - t0:.1f} s wall")
 
     # ---- 9. the rest of batch solving ------------------------------------
@@ -368,7 +377,7 @@ def main() -> int:
     print(f"the whole smoke: {time.perf_counter() - T_START:.1f} s wall")
 
     print(f"card: {card}")
-    print(json.dumps({"kernels": [k1, k2]}))
+    print(json.dumps({"kernels": [k1, k2, k3]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -575,6 +584,130 @@ def kernel_phase_panels(torch, dev):
                               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                               library_ms=None, ms_back_to_back=ms, launches_per_step=None)
             del u, r, c, got, want, dense
+    return result
+
+
+def clique_rows(Nl, M, n_cams, seed, ring=True):
+    """Camera ids [Nl, M] of a clique.  ring: as the ring generators pick
+    them (benchmark/scenes/ba_large.py, datasets.make_ba_scene_large): a
+    random first camera and M - 1 more at a stride of n_cams // (3 M), so
+    each first camera names one tuple (long runs of one tuple; pairs that
+    wrap round the ring need the transpose).  Else M distinct cameras in a
+    random order for each landmark (nearly every tuple its own)."""
+    rng = np.random.default_rng(seed)
+    if ring:
+        stride = max(1, n_cams // (3 * M))
+        base = rng.integers(0, n_cams, Nl)
+        return (base[:, None] + stride * np.arange(M)[None, :]) % n_cams
+    steps = rng.integers(1, n_cams // M + 1, (Nl, M))
+    steps[:, 0] = rng.integers(0, n_cams, Nl)
+    rows = np.cumsum(steps, axis=1) % n_cams
+    return np.take_along_axis(rows, np.argsort(rng.random((Nl, M)), axis=1), axis=1)
+
+
+def clique_pattern(rows, Np):
+    """(fill_dst, pp_to_sc, Ksc) of a clique's camera ids rows [Nl, M] with
+    the diagonal pp blocks alone, as SchurSolver._build_sparse_reduced
+    makes them."""
+    ii, jj = np.triu_indices(rows.shape[1])
+    ra, rb = rows[:, ii], rows[:, jj]
+    fill_keys = np.where(ra > rb, rb * Np + ra, ra * Np + rb).reshape(-1)
+    pp_keys = np.arange(Np) * (Np + 1)
+    sc_keys = np.unique(np.concatenate([pp_keys, fill_keys]))
+    return (np.searchsorted(sc_keys, fill_keys), np.searchsorted(sc_keys, pp_keys),
+            len(sc_keys))
+
+
+def clique_inputs(torch, dev, dt, rows, Np, seed):
+    """K3's plan for camera ids rows [Nl, M] and random blocks in the
+    solver's form: SPD ll [Nl, 9], eta_l, H_pl [Nl * M, 18], eta_p, pp."""
+    from slam_plus_plus_tpu_torch.ops.clique import build_clique_plan
+
+    Nl, M = rows.shape
+    plan = build_clique_plan(rows, *clique_pattern(rows, Np), Np, dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev, dtype=dt)
+
+    a = randn(Nl, 3, 3)
+    ll = (a @ a.mT + 0.5 * torch.eye(3, device=dev, dtype=dt)).reshape(Nl, 9)
+    return plan, ll, randn(Nl, 3), randn(Nl * M, 18), randn(Np, 6), randn(Np, 36)
+
+
+def clique_bounds(Nl, M, itemsize):
+    """K3a's and K3b's least times ((ms, by) each), by the real
+    observations: K3a's is benchmark/clique_work.py's (each 3 x 6 block
+    read once with its camera id, its W = U C^-1 product); K3b reads the
+    same and C^-1 and eta_l, writes dx_l, and forms U^T dx_p."""
+    from benchmark.clique_work import clique_work
+
+    nbytes, flops = clique_work(Nl * M, itemsize)
+    return (bound(nbytes, flops, itemsize),
+            bound(nbytes + Nl * (9 + 3 + 3) * itemsize, Nl * M * 2 * 18, itemsize))
+
+
+def kernel_phase_clique(torch, dev):
+    """K3a (clique_forward) and K3b (clique_back) against their plain
+    versions at ring871's clique and at venice-real's, float32 and float64:
+    within tolerance, each call bitwise the last (fixed-order sums), one
+    launch each a call; times beside each kernel's least time."""
+    from slam_plus_plus_tpu_torch.ops import clique as k3
+
+    result = None
+    for Nl, M, n_cams in (K3_RING871, K3_VENICE):
+        rows = clique_rows(Nl, M, n_cams, SEED + 2)
+        for dt, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+            size = torch.tensor([], dtype=dt).element_size()
+            plan, ll, eta_l, u, eta_p, pp = clique_inputs(torch, dev, dt, rows, n_cams, SEED + 3)
+            f0, b0 = k3.clique_forward.launches, k3.clique_back.launches
+            fwd = (ll, eta_l, u, eta_p, pp, plan)
+            got = k3.clique_forward(*fwd)
+            again = k3.clique_forward(*fwd)
+            torch.cuda.synchronize()
+            check(k3.clique_forward.launches == f0 + 2, "K3a: not one launch a call")
+            want = k3.clique_forward_plain(*fwd)
+            name = f"K3a {str(dt)[6:]} Nl={Nl} M={M}"
+            err_a = compare(torch, name, got, want, tol, ("c_inv", "sc", "rhs"))[1]
+            check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                  f"{name}: two calls differ")
+            c_inv = want[0]
+            dx_p = torch.randn(eta_p.shape, device=dev, dtype=dt)
+            bwd = (c_inv, u, eta_l, dx_p, plan)
+            got_b = k3.clique_back(*bwd)
+            check(torch.equal(got_b, k3.clique_back(*bwd)), f"K3b {name[4:]}: two calls differ")
+            check(k3.clique_back.launches == b0 + 2, "K3b: not one launch a call")
+            err_b = compare(torch, f"K3b {name[4:]}", (got_b,),
+                            (k3.clique_back_plain(*bwd),), tol, ("dx_l",))[1]
+            numbers = {}
+            for kname, fn, plain, (bound_ms, bound_by), err in (
+                    ("K3a", lambda: k3.clique_forward(*fwd),
+                     lambda: k3.clique_forward_plain(*fwd), clique_bounds(Nl, M, size)[0], err_a),
+                    ("K3b", lambda: k3.clique_back(*bwd), lambda: k3.clique_back_plain(*bwd),
+                     clique_bounds(Nl, M, size)[1], err_b)):
+                ms = cuda_ms(torch, fn)
+                one_ms = call_ms(torch, fn)
+                plain_ms = call_ms(torch, plain)
+                print(f"{kname} {'clique_forward' if kname == 'K3a' else 'clique_back'} "
+                      f"{str(dt)[6:]} Nl={Nl} M={M} cams={n_cams} ({plan.n_pieces} pieces, "
+                      f"{plan.n_partials} partial blocks of {Nl * plan.T} pair products): max "
+                      f"err/scale {err:.3e} (tol {tol:g}), repeats bitwise; back to back "
+                      f"{ms:.4f} ms, least {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} "
+                      f"of it; one call from idle {one_ms:.4f} ms, plain {plain_ms:.4f} ms")
+                numbers[kname] = dict(max_err_over_scale=err, ms=one_ms, plain_ms=plain_ms,
+                                      bound_ms=bound_ms, bound_by=bound_by,
+                                      ms_back_to_back=ms)
+            if (Nl, M, n_cams) == K3_RING871 and dt == torch.float32:
+                result = dict(name="clique_forward + clique_back", route="cuda",
+                              source="slam_plus_plus_tpu_torch/csrc/clique.cu",
+                              replaces=None, launches=0, ring871=numbers,
+                              venice_real={"Nl": K3_VENICE[0], "M": K3_VENICE[1],
+                                           "launches": None})
+            elif (Nl, M, n_cams) == K3_RING871:
+                result["ring871_" + str(dt)[6:]] = numbers
+            else:
+                result["venice_real"][str(dt)[6:]] = numbers
+            del plan, ll, eta_l, u, eta_p, pp, got, again, want, c_inv, got_b, fwd, bwd
     return result
 
 
@@ -964,11 +1097,13 @@ def sparse_schur_check(torch, dev):
     (forced with sparse_reduced_limit=1) on the card in float32, by the
     clique and the gathered path: against the CPU solve of the same float32
     lambda, and against the CPU float64 solve (held against the JAX package
-    by the tests)."""
+    by the tests).  The clique path's solve launches K3a and K3b once each
+    (M 6), the gathered path neither."""
     from slam_plus_plus_tpu_torch.assembly.assembler import Assembler, BlockSystem
     from slam_plus_plus_tpu_torch.io import datasets as D
     from slam_plus_plus_tpu_torch.io.parser import parse_g2o
     from slam_plus_plus_tpu_torch.linalg.schur import SchurSolver
+    from slam_plus_plus_tpu_torch.ops import clique as k3
     from slam_plus_plus_tpu_torch.solvers.lm import damp_system
 
     path = os.path.join(_scene_dir(), "smoke_clique_24_400_6_5.g2o")
@@ -988,7 +1123,12 @@ def sparse_schur_check(torch, dev):
         for sch in solvers:
             check(sch.sparse_reduced and sch.clique, "sparse scene: branch or clique path")
             sch.clique = clique
+        before = k3.clique_forward.launches, k3.clique_back.launches
         got = solvers[0].solve(bs)
+        launched = (k3.clique_forward.launches - before[0], k3.clique_back.launches - before[1])
+        check(launched == ((1, 1) if clique else (0, 0)),
+              f"sparse scene {'clique' if clique else 'gathered'}: K3a / K3b launched "
+              f"{launched}")
         for ref, tol in ((solvers[1].solve(bs32_cpu), SPARSE_TOL_F32),
                          (solvers[1].solve(bs64), SPARSE_TOL_F64)):
             worst = 0.0
@@ -1001,7 +1141,8 @@ def sparse_schur_check(torch, dev):
             errs.append(worst)
         print(f"sparse-reduced Schur, small scene ({asm.Np} cams, {asm.Nl} pts, "
               f"{'clique' if clique else 'gathered'} path, Ksc {solvers[0].Ksc}, "
-              f"{solvers[0].reduced_chol.n_levels} MIS levels): card float32 damped step vs "
+              f"{solvers[0].reduced_chol.n_levels} MIS levels; K3a / K3b launches "
+              f"{launched[0]} / {launched[1]}): card float32 damped step vs "
               f"the CPU's on the same float32 lambda {errs[0]:.3e} x scale (tol "
               f"{SPARSE_TOL_F32:g}); vs CPU float64 {errs[1]:.3e} x scale (tol {SPARSE_TOL_F64:g})")
 
@@ -1052,7 +1193,7 @@ def ba_family_rows(torch, dev):
               f"iterations vs CPU float64 {want:.6f} in {wit}, relative {err:.3e} ({verdict})")
 
 
-def venice_row(torch, dev, card, k1):
+def venice_row(torch, dev, card, k1, k3):
     """venice-real (871 cameras, 100,000 points, 800,000 observations; the
     reference's headline BA workload) through the CLI's code path: it must
     take the sparse-reduced Schur with its clique path, and LM's 5
@@ -1060,10 +1201,12 @@ def venice_row(torch, dev, card, k1):
     steady ms per LM iteration over 3 more iterations (as
     scripts/venice_real_tpu.py measures it), a stage split of one solve,
     peak device memory, a profile of one LM iteration, and the launch
-    counters: K1 launched during the row, K2 not.  Returns the solved
-    GraphSystem (host arrays: the solver's device buffers go with it)."""
+    counters: K1 and K3 (K3a and K3b once a solve) launched during the
+    row, K2 not.  Returns the solved GraphSystem (host arrays: the
+    solver's device buffers go with it)."""
     from slam_plus_plus_tpu_torch.app import main as cli
     from slam_plus_plus_tpu_torch.io import acceptance
+    from slam_plus_plus_tpu_torch.ops import clique
     from slam_plus_plus_tpu_torch.ops.p2c import p2c_edge_terms
     from slam_plus_plus_tpu_torch.ops.panel import build_panels
     from slam_plus_plus_tpu_torch.solvers.lm import damp_system
@@ -1074,6 +1217,8 @@ def venice_row(torch, dev, card, k1):
     t_scene = time.perf_counter() - t0
     p2c_edge_terms.launches = 0
     build_panels.launches = 0
+    clique.clique_forward.launches = 0
+    clique.clique_back.launches = 0
     torch.cuda.reset_peak_memory_stats()
     args = cli.build_argparser().parse_args(
         ["-i", path, "--device", dev.type, "-v", "-dx", ""] + flags)
@@ -1081,10 +1226,12 @@ def venice_row(torch, dev, card, k1):
     chi2, iters, solver = cli.run(args)
     t_cli = time.perf_counter() - t0
     launches = (p2c_edge_terms.launches, build_panels.launches)
+    k3_launches = (clique.clique_forward.launches, clique.clique_back.launches)
     asm, sch = solver.asm, solver._schur
     check(asm.dtype == torch.float32, "venice-real: the card path runs float32")
     check(sch is not None and sch.sparse_reduced, "venice-real: not the sparse-reduced Schur")
-    check(sch.clique, "venice-real: the clique path did not engage")
+    check(sch.clique and sch._clique_plan is not None,
+          "venice-real: the clique path through K3 did not engage")
     check(asm.pl_uniform is not None and asm.M == 8 and asm.Nl * asm.M == VENICE_E,
           "venice-real: not K1's uniform layout at M = 8 without dummies")
     traj = [e for (_n, e, _d) in solver.trial_log]
@@ -1092,6 +1239,8 @@ def venice_row(torch, dev, card, k1):
           f"venice-real: chi2 {chi2:.2f} > {acceptance.GATE} x {golden}")
     check(launches[0] > 0, "venice-real: K1 was not launched")
     check(launches[1] == 0, f"venice-real: K2 launched {launches[1]} times")
+    check(k3_launches[0] > 0 and k3_launches[0] == k3_launches[1],
+          f"venice-real: K3a / K3b launched {k3_launches[0]} / {k3_launches[1]} times")
     print(f"venice-real ({solver.system.num_vertices} vertices, {solver.system.num_edges} "
           f"edges; {asm.Np} x {asm.Bp} + {asm.Nl} x {asm.Bl} dims): scene file "
           f"{t_scene:.1f} s, parse {solver.timing['parse']:.2f} s by the C++ reader (the "
@@ -1118,8 +1267,9 @@ def venice_row(torch, dev, card, k1):
     states = asm.snapshot_states(solver.system)
     base = asm.assemble(states)
     alpha = float(base.max_hdiag) * 1e-3
-    stages = {k: [] for k in ("assemble", "w_rhs", "clique_index_add", "block_cholesky",
-                              "back_substitute")}
+    stages = {k: [] for k in ("assemble", "clique_forward", "block_cholesky",
+                              "clique_back")}
+    plan = sch._clique_plan
 
     def timed(name, fn):
         torch.cuda.synchronize()
@@ -1132,13 +1282,15 @@ def venice_row(torch, dev, card, k1):
     for _ in range(3):
         bs = timed("assemble", lambda: damp_system(asm.assemble(states), alpha,
                                                    asm.pp_diag_ids_dev))
-        c_inv, u, w, rhs = timed("w_rhs", lambda: sch._sparse_w_rhs(bs))
-        sc = timed("clique_index_add", lambda: sch._sparse_sc(bs, u, w))
+        u = bs.pl_blocks[:asm.Kpl]
+        c_inv, sc, rhs = timed("clique_forward", lambda: clique.clique_forward(
+            bs.ll_blocks, bs.eta_l, u, bs.eta_p, bs.pp_blocks, plan))
         dx_p = timed("block_cholesky", lambda: sch._sparse_factor_solve(sc, rhs))
-        timed("back_substitute", lambda: sch._sparse_back_substitute(bs, c_inv, u, dx_p))
-        del bs, c_inv, u, w, rhs, sc, dx_p
+        timed("clique_back", lambda: clique.clique_back(c_inv, u, bs.eta_l, dx_p, plan))
+        del bs, c_inv, u, rhs, sc, dx_p
     split = {k: statistics.median(v) for k, v in stages.items()}
     k1["venice_real"]["launches"] = launches[0]
+    k3["launches"] = k3["venice_real"]["launches"] = k3_launches[0]
 
     def step(st):
         """One LM trial (damp, solve, update, re-assembly, its host read)."""
@@ -1146,16 +1298,21 @@ def venice_row(torch, dev, card, k1):
         torch.stack([n, e, den]).tolist()
         return new, e
 
-    before = p2c_edge_terms.launches
+    before = p2c_edge_terms.launches, clique.clique_forward.launches, clique.clique_back.launches
     step(states)
-    k1["venice_real"]["launches_per_iteration"] = p2c_edge_terms.launches - before
+    k1["venice_real"]["launches_per_iteration"] = p2c_edge_terms.launches - before[0]
+    per_trial = (clique.clique_forward.launches - before[1],
+                 clique.clique_back.launches - before[2])
+    check(per_trial == (1, 1), f"venice-real: K3a / K3b launched {per_trial} times a trial")
     print(f"venice-real: {ms_iter:.2f} ms per LM iteration steady ({it2} iterations of "
           f"optimize(3), its set-up assemble and chi2 included) on {card}; stage split of "
           f"one solve (median of 3, synchronized, ms): " +
           ", ".join(f"{k} {v:.3f}" for k, v in split.items()) +
           f"; sum {sum(split.values()):.3f}; launches during the row: p2c_edge_terms "
           f"{launches[0]} ({k1['venice_real']['launches_per_iteration']} per LM "
-          f"iteration), build_panels {launches[1]}; peak device memory "
+          f"iteration), build_panels {launches[1]}, clique_forward / clique_back "
+          f"{k3_launches[0]} / {k3_launches[1]} (1 / 1 a trial; {plan.n_pieces} pieces, "
+          f"{plan.n_partials} partial blocks); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_steps(torch, step, states, n_steps=1, what="venice-real LM iteration")
     return solver.system

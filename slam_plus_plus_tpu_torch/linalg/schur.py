@@ -40,7 +40,12 @@ replaces the gathers by broadcasts over the M slots and the pair products
 by one per-landmark einsum [M*Bp, Bl] @ [Bl, M*Bp], chunked at <=
 CLIQUE_CHUNK landmarks.  No Pallas kernel computes any of this in the JAX
 package: the products are library matmuls and the segment sums
-``index_add_``.
+``index_add_``.  The solve's clique path (6 x 3 blocks, M <= 10) runs
+kernels K3a and K3b instead (``ops/clique.py``): C^-1, W, the reduced rhs
+and the SC pair products in one pass over the landmarks, summed on chip per
+run of one camera tuple and then in a fixed order, and the
+back-substitution in one more; ``_sparse_w_rhs`` and ``_sparse_sc`` keep
+the torch chain for the marginals.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ import torch
 
 from slam_plus_plus_tpu_torch.linalg.block_cholesky import BlockCholeskySolver
 from slam_plus_plus_tpu_torch.linalg.dense import DenseScatter, cholesky_solve
+from slam_plus_plus_tpu_torch.ops import clique as k3
 from slam_plus_plus_tpu_torch.ops import planar
 from slam_plus_plus_tpu_torch.ops.panel import build_panels
 from slam_plus_plus_tpu_torch.utils.timer import count, enabled, span
@@ -114,7 +120,9 @@ class SchurSolver:
     (its ``n_levels`` and ``plan.n_bottom``).  With the tracer on, each
     solve counts ``schur.route.<route>``; the uniform branch times K2 in
     the span ``schur.panels`` and counts the panels' bytes in
-    ``schur.panel_bytes``."""
+    ``schur.panel_bytes``; a solve that K3 serves counts
+    ``schur.clique.kernel`` (``schur.clique.plain`` on the CPU) and the
+    partial SC blocks K3a writes in ``schur.clique.partials``."""
 
     def __init__(self, asm, dense_reduced=None,
                  sparse_reduced_limit: int = SPARSE_REDUCED_LIMIT):
@@ -124,6 +132,7 @@ class SchurSolver:
             raise ValueError("Schur solver requires an eliminated class")
         self.n_reduced = Np * Bp
         self.clique = False
+        self._clique_plan = None
         # K2 builds one uniform channel's panels; several channels (the
         # uniform layout of a mixed or ternary scene) take the flat branch,
         # which sums the blocks of repeated (camera, landmark) pairs
@@ -300,6 +309,11 @@ class SchurSolver:
             M = self.M = int(ch[0]["M"])
             ii, jj = np.triu_indices(M)
             self._triu = t(ii * M + jj)
+            if k3.supported(M, asm.Bp, asm.Bl):
+                # K3's plan: the landmarks ordered by camera tuple
+                self._clique_plan = k3.build_clique_plan(
+                    rows_s.reshape(asm.Nl, M), self.fill_dst, self.pp_to_sc, self.Ksc, Np,
+                    asm.device)
 
     def _sparse_w_rhs(self, system):
         """(c_inv, u, w, rhs_p): C^-1 per landmark, the H_pl blocks, W = H_pl
@@ -361,7 +375,28 @@ class SchurSolver:
             ut_dx = torch.zeros_like(system.eta_l).index_add_(0, self._pl_cols, ut_dx)
         return dx_p, planar.bmv(c_inv, system.eta_l - ut_dx, Bl, Bl)
 
+    def _solve_clique(self, system):
+        """(dx_p, dx_l) through K3: K3a's pass over the landmarks (C^-1, the
+        reduced rhs and SC) in ``schur.sc_fill``, the reduced factor, K3b's
+        back-substitution."""
+        plan = self._clique_plan
+        if enabled():
+            cpu = system.pl_blocks.device.type == "cpu"
+            count("schur.clique.plain" if cpu else "schur.clique.kernel")
+            count("schur.clique.partials", plan.n_partials)
+        with span("schur.w_rhs"):
+            u = system.pl_blocks[:self.asm.Kpl]
+        with span("schur.sc_fill"):
+            c_inv, sc, rhs_p = k3.clique_forward(system.ll_blocks, system.eta_l, u,
+                                                 system.eta_p, system.pp_blocks, plan)
+        with span("schur.factor"):
+            dx_p = self._sparse_factor_solve(sc, rhs_p)
+        with span("schur.back_substitute"):
+            return dx_p, k3.clique_back(c_inv, u, system.eta_l, dx_p, plan)
+
     def _solve_sparse(self, system):
+        if self.clique and self._clique_plan is not None:
+            return self._solve_clique(system)
         with span("schur.w_rhs"):
             c_inv, u, w, rhs_p = self._sparse_w_rhs(system)
         with span("schur.sc_fill"):

@@ -30,7 +30,7 @@ CSRC = os.path.join(_PKG, "csrc")
 NATIVE = os.path.join(os.path.dirname(_PKG), "native")
 BUILD_DIR = os.path.join(_PKG, "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libslampp_kernels.so")
-SOURCES = ("p2c.cu", "panel.cu")
+SOURCES = ("p2c.cu", "panel.cu", "clique.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,6 +43,10 @@ _SIGNATURES = {
     "slampp_p2c_f64": (_P, _P, _P, _P, _P, _L, _P),
     "slampp_panels_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I, _I, _I, _I, _P),
     "slampp_panels_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I, _I, _I, _I, _P),
+    "slampp_clique_forward_f32": (_P,) * 18 + (_I,) * 7 + (_P,),
+    "slampp_clique_forward_f64": (_P,) * 18 + (_I,) * 7 + (_P,),
+    "slampp_clique_back_f32": (_P,) * 6 + (_I,) * 3 + (_P,),
+    "slampp_clique_back_f64": (_P,) * 6 + (_I,) * 3 + (_P,),
 }
 
 

@@ -26,6 +26,7 @@ from slam_plus_plus_tpu_torch.io.parser import parse_g2o as tparse
 from slam_plus_plus_tpu_torch.linalg.schur import SchurSolver as TSchur
 from slam_plus_plus_tpu_torch.linalg.schur import route_sparse_reduced
 from slam_plus_plus_tpu_torch.solvers.lm import LevenbergMarquardtSolver as TLM
+from slam_plus_plus_tpu_torch.utils import timer
 
 
 @pytest.fixture(scope="module")
@@ -71,7 +72,15 @@ def test_sparse_solve_matches_jax(scene, path):
         jsch._clique_uniform = None
         tsch.clique = False
     want = jax.jit(jsch._solve_sparse_impl)(jb)
-    got = tsch.solve(tb)
+    # the clique path's solve goes through K3's entry points (on the CPU
+    # their plain versions), the gathered path's through the torch chain
+    timer.enable()
+    try:
+        got = tsch.solve(tb)
+        counts = [c.name for c in timer.drain()["counts"]]
+    finally:
+        timer.disable()
+    assert counts.count("schur.clique.plain") == (path == "clique")
     dense = TSchur(ta).solve(tb)        # the port's dense uniform solve
     assert not TSchur(ta).sparse_reduced
     for w, g, d in zip(want, got, dense):
