@@ -85,15 +85,14 @@ it never falls back to the CPU.  Phases, each of which must pass:
      iteration finite and not rising (beyond float32's
      1e-3 wander at the optimum); K1 and K2 launched 0 times;
  10. incremental solving (no Pallas kernel lies on this path either), in
-     float64, the incremental engine's dtype on the card
-     (config.float64_dtype): (a) a small manhattan -nsp 1 -fL replay by
-     the float32 engine (dtype=torch.float32) on the card: the maintained
-     factor's flat stores after the first dirty step within 1e-4 x scale of
-     the same step on the CPU from the same float32 inputs, their DUMMY rows
-     zero, their largest error against the CPU float64 replay's printed
-     (not gated: the float32 pivot ridge), the final chi2 within 1e-3
-     relative of the JAX package's float32 replay (float32 ends 10.3% above
-     float64 on this file, in both packages); (b) the six incremental
+     float64, the incremental engine's dtype on both devices
+     (config.float64_dtype): (a) a small manhattan -nsp 1 -fL replay on
+     the card against the same replay on the CPU: the maintained factor's
+     flat stores after the first dirty step within 1e-10 x scale of the
+     same step on the CPU from the same inputs and within 1e-8 x scale of
+     the CPU replay's own first dirty step, their DUMMY rows zero, the
+     final chi2 within 1e-8 relative of the CPU replay's in the same
+     iterations; (b) the six incremental
      acceptance rows (io/acceptance.py INCREMENTAL_ROWS: manhattan3500 and
      city10k -nsp 1, manhattan3500, intel-scale, vp-scale and trees10k-incr
      -nsp 1 -fL) through the CLI's code path in float64, each gated at chi2
@@ -1584,15 +1583,12 @@ def rest_of_batch_phase(torch, dev, card):
 #: the small -fL replay of phase 10 (a): manhattan, no push before its first
 #: dirty step, so card and CPU reach it at the same linearization
 INCR_SMALL = dict(n_poses=300, seed=91)
-#: the JAX package's float32 FastL replay of that file (its JAX engine, on
-#: the CPU): float32 with the JAX package's settings ends 10.3% above the
-#: float64 replay's 46.2038 there (ROADMAP.md Queue 3), and the port's
-#: float32 replay follows the JAX one (tests/test_torch_incremental.py)
-INCR_SMALL_JAX_F32 = 50.977749
 #: the card's first dirty step against the same step on the CPU from the
-#: same float32 inputs, per store x its scale; the final chi2 against the
-#: JAX package's float32 replay, relative
-INCR_STORE_TOL, INCR_CHI2_TOL = 1e-4, 1e-3
+#: same inputs, per store x its scale (the tests' bound between two
+#: packages' float64 stores); against the CPU replay's first dirty step,
+#: whose inputs the CPU assembled (the tests' bound for what passes through
+#: two factorizations); the final chi2 against the CPU replay's, relative
+INCR_STORE_TOL, INCR_REPLAY_TOL, INCR_CHI2_TOL = 1e-10, 1e-8, 1e-8
 #: the profiled stretch of manhattan3500 -fL: this many solve points of the
 #: fast path, from this one on
 PROFILE_SOLVE_POINTS, PROFILE_FROM = 20, 100
@@ -1634,11 +1630,10 @@ def _store_errors(inc, got, want, tol=None):
 
 
 def incremental_small_check(torch, dev):
-    """(a): the card's float32 -fL replay of a small manhattan: its first
-    dirty step against the same step on the CPU from the same float32
-    inputs, its DUMMY rows, its stores against the CPU float64 replay's
-    (printed: the JAX package's float32 pivot ridge moves C by up to the
-    pivot's condition x 1e-5), and its final chi2."""
+    """(a): the card's -fL replay of a small manhattan against the CPU's,
+    both float64: its first dirty step against the same step on the CPU
+    from the same inputs and against the CPU replay's, its DUMMY rows, and
+    its final chi2."""
     from slam_plus_plus_tpu_torch.io import datasets as D
     from slam_plus_plus_tpu_torch.io.parser import parse_g2o
     from slam_plus_plus_tpu_torch.solvers.fastl import FastLSolver
@@ -1648,17 +1643,15 @@ def incremental_small_check(torch, dev):
     D.write_g2o_2d(path, edges, poses)
     runs = {}
     for d in ("cpu", dev):
-        # the card's float32 engine (dtype=), against the CPU's float64 one
-        fl = FastLSolver(parse_g2o(path), device=d,
-                         dtype=torch.float32 if d == dev else None)
+        fl = FastLSolver(parse_g2o(path), device=d)
         seen = _first_dirty_step(torch, fl)
         chi2, iters = fl.run()
         check("out" in seen, f"small -fL replay on {d}: no dirty step")
         runs[str(d)] = (fl, seen, chi2, iters)
-    (cpu, cseen, chi2_64, it64), (fl, seen, chi2, it) = runs["cpu"], runs[str(dev)]
+    (cpu, cseen, chi2_cpu, it_cpu), (fl, seen, chi2, it) = runs["cpu"], runs[str(dev)]
     inc = fl.inc
-    check(fl.asm.dtype == torch.float32 and cpu.asm.dtype == torch.float64,
-          "small -fL replay: the card's float32 engine against the CPU's float64 one")
+    check(fl.asm.dtype == cpu.asm.dtype == torch.float64,
+          "small -fL replay: the card's engine and the CPU's run float64")
     check((inc.cap_d, inc.cap_e, inc.cap_w, inc.cap_p) ==
           (cpu.inc.cap_d, cpu.inc.cap_e, cpu.inc.cap_w, cpu.inc.cap_p),
           "small -fL replay: card and CPU capacities differ")
@@ -1668,20 +1661,16 @@ def incremental_small_check(torch, dev):
     for k, dummy in (("H", inc.H_dummy), ("C", inc.C_dummy), ("W", inc.W_dummy),
                      ("P", inc.P_dummy)):
         check(not bool(seen["out"][k][dummy].any()), f"small -fL replay: {k} DUMMY row written")
-    vs64, vs64_max = _store_errors(inc, seen["out"], cseen["out"])
-    rel = abs(chi2 - INCR_SMALL_JAX_F32) / INCR_SMALL_JAX_F32
-    check(np.isfinite(chi2) and rel <= INCR_CHI2_TOL,
-          f"small -fL replay: card {chi2} in {it} iterations, the JAX package's float32 "
-          f"{INCR_SMALL_JAX_F32}")
+    vs_cpu, _ = _store_errors(inc, seen["out"], cseen["out"], INCR_REPLAY_TOL)
+    rel = abs(chi2 - chi2_cpu) / chi2_cpu
+    check(np.isfinite(chi2) and rel <= INCR_CHI2_TOL and it == it_cpu,
+          f"small -fL replay: card {chi2} in {it} iterations, the CPU's {chi2_cpu} in {it_cpu}")
     print(f"small -nsp 1 -fL replay (manhattan {INCR_SMALL['n_poses']} poses, "
-          f"{len(fl.chol.plan.levels)} MIS levels): the first dirty step on the card against "
-          f"the CPU's from the same float32 inputs, max err/scale {same} (tol "
-          f"{INCR_STORE_TOL:g}); DUMMY rows zero; card float32 stores against the CPU float64 "
-          f"replay's {vs64}, largest {vs64_max:.3e} x scale (not gated: the float32 pivot "
-          f"ridge); final chi2 {chi2:.6f} in "
-          f"{it} iterations vs the JAX package's float32 {INCR_SMALL_JAX_F32}, relative "
-          f"{rel:.3e} (tol {INCR_CHI2_TOL:g}); the CPU float64 replay {chi2_64:.6f} in {it64} "
-          f"(float32 {chi2 / chi2_64 - 1:+.2%}, as the JAX package's float32)")
+          f"{len(fl.chol.plan.levels)} MIS levels, float64): the first dirty step on the card "
+          f"against the CPU's from the same inputs, max err/scale {same} (tol "
+          f"{INCR_STORE_TOL:g}); against the CPU replay's {vs_cpu} (tol {INCR_REPLAY_TOL:g}); "
+          f"DUMMY rows zero; final chi2 {chi2:.10f} in {it} iterations vs the CPU's "
+          f"{chi2_cpu:.10f} in {it_cpu}, relative {rel:.3e} (tol {INCR_CHI2_TOL:g})")
 
 
 def incremental_row(torch, dev, card, label):

@@ -3,11 +3,11 @@
 A solve point whose reachability walk fits the capacities runs a chain of
 a few thousand short kernels: omega (FastLSolver._omega, once per batch of
 OMEGA_EDGE_CAP edges of one type), the dirty refresh
-(IncrementalCholesky._dirty_scan) and the refined solve
+(IncrementalCholesky._dirty_scan) and the solve
 (IncrementalCholesky.solve_with_norm).  Every shape in it is fixed by the
 plan and by the batches' types (each batch is padded to OMEGA_EDGE_CAP
 edges, every level of the walk runs at the same capacities), and the
-float64 chain reads nothing back on the host.  So on a CUDA device the
+chain reads nothing back on the host.  So on a CUDA device the
 chain of each sequence of batch types (its key: one batch of one type at
 nearly every solve point of every_n = 1) is captured once and replayed: a
 solve point then costs the packing of its indices, one host-to-device copy
@@ -25,13 +25,12 @@ The runner owns what the chain reads and writes, at fixed addresses:
   * each graph's outputs: dx, |dx| and the bottom factor (L, s), which the
     held stores point to after its replay.
 
-On a CUDA device in float64 the first solve point with a batch of an edge
-type runs eagerly on a side stream (the warm-up); a later key without a
-graph is captured on that stream into a private pool, with the sync debug
-mode raising on any host synchronization, then replayed; the graphs live
-as long as the solver.  A capture that fails leaves the solver eager for
-good, with a warning, and ``capture_failure`` says why.  On the CPU, and in
-float32 (whose bottom factor reads a ridge status on the host), every
+On a CUDA device the first solve point with a batch of an edge type runs
+eagerly on a side stream (the warm-up); a later key without a graph is
+captured on that stream into a private pool, with the sync debug mode
+raising on any host synchronization, then replayed; the graphs live as
+long as the solver.  A capture that fails leaves the solver eager for
+good, with a warning, and ``capture_failure`` says why.  On the CPU every
 point runs the same chain eagerly from the same buffers.
 
 Tracer (utils/timer.py): the span ``fastl.graph_replay`` around a replay's
@@ -54,7 +53,7 @@ from slam_plus_plus_tpu_torch.linalg.incremental_cholesky import OMEGA_CAP
 from slam_plus_plus_tpu_torch.utils.timer import count, span
 
 #: the factor stores the chain reads at fixed addresses ("L" and "s" it
-#: computes; "H0" is an alias of "H")
+#: computes)
 STATIC = ("H", "C", "W", "P", "dense", "sv", "outer0")
 
 
@@ -73,8 +72,7 @@ class SolvePointRunner:
         asm = fl.asm
         self.device = dev = asm.device
         cuda = dev.type == "cuda"
-        self.eager_reason: Optional[str] = (
-            "float32" if asm.dtype == torch.float32 else None if cuda else dev.type)
+        self.eager_reason: Optional[str] = None if cuda else dev.type
         self.capture_failure: Optional[str] = None
         # per edge type: (a batch's index length, its omega contributions)
         self._lens = {}
@@ -114,7 +112,6 @@ class SolvePointRunner:
                 self.stores["L"], self.stores["s"] = stores["L"], stores["s"]
             if eta0 is not self.eta0:
                 self.eta0.copy_(eta0)
-        self.stores["H0"] = self.stores["H"]
         return self.stores, self.eta0
 
     def hold_states(self, states):
@@ -133,7 +130,7 @@ class SolvePointRunner:
     def run(self, chunks, host_packed):
         """(dx, |dx|) of a solve point, on the held stores, eta0 and states:
         chunks are FastLSolver._pending_chunks' batches, host_packed their
-        walk (IncrementalCholesky.prepare_host, not None)."""
+        walk (IncrementalCholesky.prepare_host_batch's, not None)."""
         key = tuple(en for (en, _els, _nmc, _valid) in chunks)
         with span("fastl.pack"):
             if self._copied is not None:
@@ -172,8 +169,8 @@ class SolvePointRunner:
 
     def _chain(self, key):
         """The device chain of the batches' types key, from dev_in and the
-        held buffers: FastLSolver._apply_pending's omega batches, then
-        IncrementalCholesky.refactor_dirty's refresh and the solve."""
+        held buffers: FastLSolver.absorb's omega batches and dirty refresh,
+        then the solve."""
         fl, inc, st = self.fl, self.inc, self.stores
         off, vals = 0, []
         with span("fastl.omega"):

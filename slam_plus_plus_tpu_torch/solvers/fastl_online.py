@@ -25,10 +25,10 @@ this engine wraps it the JAX package's way:
     them, O(log n) from doubling plus O(closures / FRINGE_CAP).
 
 FastL's semantics (frozen linearization, omega updates, a push on a large
-|dx|) come from the wrapped engine's parts: _init_stores, _apply_pending,
-IncrementalCholesky.refactor_dirty, _refactor, _solve and
-Assembler.place_vertex.  The engine serves the SE(2) odometry / closure
-edges of a streamed pose graph (``edge_pose2d``, the JAX package's
+|dx|) come from the wrapped engine's public parts: FastLSolver.rebuild,
+walk and absorb (which chooses the dirty refresh or the full redescent),
+IncrementalCholesky.solve and Assembler.place_vertex.  The engine serves
+the SE(2) odometry / closure edges of a streamed pose graph (``edge_pose2d``, the JAX package's
 default and its only caller's) and runs float64 on both devices
 (config.float64_dtype, as FastL).
 """
@@ -111,8 +111,7 @@ class OnlineFastLSolver:
         self._counts = {n: 0 for n in fs.asm.edge_data}
         self._counts[EDGE] = len(self.seen)
         self._n_active = self.n_vertices
-        self._stores, self._eta0 = fs._init_stores(self._states, dict(self._counts),
-                                                   self._n_active)
+        self._stores, self._eta0 = fs.rebuild(self._states, dict(self._counts), self._n_active)
         self._pending: List[tuple] = []
         self._outstanding = False
         self._lin_dirty = True
@@ -267,7 +266,7 @@ class OnlineFastLSolver:
         maintained factor."""
         asm = self.fs.asm
         k = R.shape[1]
-        return self.fs.inc._solve(self._stores, R.view(asm.Np, asm.Bp, k)).reshape(-1, k)
+        return self.fs.inc.solve(self._stores, R.view(asm.Np, asm.Bp, k)).reshape(-1, k)
 
     def _resolve_X(self) -> None:
         """X for the current factor (the same linearization)."""
@@ -301,25 +300,23 @@ class OnlineFastLSolver:
     # solve / push
     # ------------------------------------------------------------------
 
-    def _apply_pending(self):
-        """The pending chain edges' omega into lambda and eta0; returns the
-        level-0 dirty positions and values."""
-        pos, vals = self.fs._apply_pending(self._stores, self._eta0, self._states,
-                                           self._pending)
+    def _absorb(self, walk) -> None:
+        """The pending chain edges into the factor (FastLSolver.absorb:
+        the dirty refresh from walk, or the full redescent for None); X is
+        then stale, so it is solved again."""
+        self._stores = self.fs.absorb(self._stores, self._eta0, self._states, self._pending,
+                                      walk)
         self._pending.clear()
-        return pos, vals
+        self._resolve_X()
 
     def _solve_point(self) -> None:
         t0 = time.perf_counter()
         fs = self.fs
         self.stats["solves"] += 1
         if self._pending:
-            if not fs.inc.refactor_dirty(self._stores, *self._apply_pending()):
-                self._stores = fs._refactor(self._stores)
-            # the factor changed: X is stale
-            self._resolve_X()
+            self._absorb(fs.walk(self._pending))
         for _ in range(fs.max_iterations):
-            dx = self._woodbury(fs._solve(self._stores, self._eta0)[0])
+            dx = self._woodbury(fs.inc.solve(self._stores, self._eta0))
             norm = float(torch.linalg.vector_norm(dx))
             if not np.isfinite(norm) or norm > 1e5 or norm <= fs.dx_threshold:
                 self._lin_dirty = True
@@ -328,8 +325,8 @@ class OnlineFastLSolver:
             self.stats["pushes"] += 1
             self._lin_dirty = False
             self._states = fs.asm.update(self._states, dx, None)
-            self._stores, self._eta0 = fs._init_stores(self._states, dict(self._counts),
-                                                       self._n_active)
+            self._stores, self._eta0 = fs.rebuild(self._states, dict(self._counts),
+                                                  self._n_active)
             self._refresh_fringe()
         self.stats["solve_seconds"] += time.perf_counter() - t0
 
@@ -347,12 +344,11 @@ class OnlineFastLSolver:
         self._ensure_engine()
         fs = self.fs
         if self._pending:
-            self._apply_pending()
-            self._stores = fs._refactor(self._stores)
-            self._resolve_X()
+            # the full redescent, as the replay's trailing edges take it
+            self._absorb(None)
             self._lin_dirty = True
         if self._lin_dirty:
-            dx = self._woodbury(fs._solve(self._stores, self._eta0)[0])
+            dx = self._woodbury(fs.inc.solve(self._stores, self._eta0))
             if bool(torch.isfinite(dx).all()):
                 self._states = fs.asm.update(self._states, dx, None)
         self.stats["elapsed"] = time.perf_counter() - self._t0

@@ -105,7 +105,7 @@ class IncrementalSolver:
         if delegates:
             self._delegate = FastLSolver(
                 system, device=device, every_n=every_n, max_iterations=max_iterations,
-                dx_threshold=dx_threshold, onetime_dx=False, dtype=dtype, native=native)
+                dx_threshold=dx_threshold, onetime_dx=False, native=native)
             self.asm = self._delegate.asm
             self.steps = self._delegate.steps
             self.timing = self._delegate.timing

@@ -68,17 +68,14 @@ def _f64(a):
     return np.ascontiguousarray(a, dtype=np.float64)
 
 
-def check_supported(system, *, device, refresh, marginals, dtype):
+def check_supported(system, *, device, marginals):
     """Raise UnsupportedReplay, naming the reason, unless the engine serves
-    this replay: the CPU, float64, the dirty refresh, no marginals, and only
-    SE(2) / 2D-landmark vertex and edge types."""
+    this replay: the CPU, no marginals, and only SE(2) / 2D-landmark vertex
+    and edge types (it runs float64 with the dirty refresh, as the torch
+    engine)."""
     if torch.device(device).type != "cpu":
         raise UnsupportedReplay(f"the C++ engine runs on the host: device {device!r} "
                                 f"asked for; use device='cpu'")
-    if dtype not in (None, torch.float64):
-        raise UnsupportedReplay(f"the C++ engine runs float64, not {dtype}")
-    if refresh != "dirty":
-        raise UnsupportedReplay(f"the C++ engine has the dirty refresh, not {refresh!r}")
     if marginals:
         raise UnsupportedReplay("the C++ engine keeps no in-loop marginals")
     vt = sorted(t for t, s in system.vertex_stores.items() if s.n and t not in VKIND)

@@ -1,6 +1,7 @@
 """The port's FastLSolver against the reference binary's goldens, float64 on
-the CPU, with both refresh modes: the maintained factor's dirty
-refactorization (the default) and the full redescent.
+the CPU, at every solve point by the maintained factor's dirty refresh (the
+replay's own capacities) or by the full redescent (capacities so small
+that every walk overflows).
 
 Goldens (tests/test_fastl.py:7-9, the reference SLAM++ `-po -nb -fL -nsp 1`
 on the files the port's generators write byte for byte as the JAX
@@ -12,6 +13,7 @@ import torch
 
 from slam_plus_plus_tpu_torch.io import datasets as D
 from slam_plus_plus_tpu_torch.io.parser import parse_g2o
+from slam_plus_plus_tpu_torch.linalg.incremental_cholesky import IncrementalCholesky
 from slam_plus_plus_tpu_torch.solvers.fastl import FastLSolver
 
 
@@ -48,11 +50,17 @@ def test_fastl_golden(tmp_path, case, golden, refresh):
     path = {"manhattan300": lambda: _manhattan(tmp_path, 300, 91),
             "manhattan1500": lambda: _manhattan(tmp_path, 1500, 92, loop_prob=0.35),
             "landmarks500": lambda: _landmarks(tmp_path)}[case]()
-    fl = FastLSolver(parse_g2o(path), device="cpu", refresh=refresh)
+    fl = FastLSolver(parse_g2o(path), device="cpu")
+    if refresh == "full":
+        # one dirty pair per level: every omega batch's walk overflows
+        fl.inc = IncrementalCholesky(fl.chol, caps=dict(d=1, e=1, w=1, p=1))
+        fl._walk_schedule()
     chi2, iters = fl.run()
     want_chi2, want_iters, want_pushes = golden
     assert fl.asm.dtype == torch.float64 and fl.asm.Nl == 0
-    assert (fl.inc is not None) == (refresh == "dirty")
+    assert fl.refresh == "dirty"
+    if refresh == "full":
+        assert fl.stats["dirty_overflows"] == fl.stats["omega_steps"] > 0
     assert iters == want_iters
     assert chi2 == pytest.approx(want_chi2, abs=0.01)
     assert fl.stats["pushes"] == want_pushes

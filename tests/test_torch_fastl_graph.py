@@ -2,8 +2,8 @@
 
 On the CPU the runner runs every solve point eagerly from its held buffers
 (the staging buffer, its device copy, the held stores, eta0 and states):
-its results are bitwise those of FastLSolver._apply_pending followed by
-IncrementalCholesky.step, the held tensors
+its results are bitwise those of FastLSolver.absorb from the point's walk
+followed by IncrementalCholesky.solve_with_norm, the held tensors
 keep their storage through pushes and overflows, and its counters account
 for every solve point.  The ``card`` test holds the CUDA graph replay
 bitwise to the eager replay on the card; it skips without one and runs
@@ -50,8 +50,9 @@ def manhattan(tmp_path_factory):
 
 
 def _by_step(fl):
-    """fl's solve points through _apply_pending and IncrementalCholesky.step
-    on the runner's held stores, in place of the runner."""
+    """fl's solve points through absorb (from the point's walk) and
+    IncrementalCholesky.solve_with_norm on the runner's held stores, in
+    place of the runner."""
     def solve_point(chunks, hp):
         r = fl._runner
         pending = [(en, int(el), nm) for (en, els, nmc, valid) in chunks
@@ -60,9 +61,8 @@ def _by_step(fl):
         assert len(again) == len(chunks)
         for a, b in zip(again, chunks):
             assert a[0] == b[0] and all(np.array_equal(x, y) for x, y in zip(a[1:], b[1:]))
-        pos, vals = fl._apply_pending(r.stores, r.eta0, r.states, pending)
-        _stores, dx, norm = fl.inc.step(r.stores, r.eta0, pos, vals, host_packed=hp)
-        return dx, norm
+        assert fl.absorb(r.stores, r.eta0, r.states, pending, hp) is r.stores
+        return fl.inc.solve_with_norm(r.stores, r.eta0)
     fl._solve_point = solve_point
 
 
@@ -95,9 +95,7 @@ def _replay(path, caps=None, **kw):
     fl = FastLSolver(parse_g2o(path), device="cpu", **kw)
     if caps is not None:
         fl.inc = IncrementalCholesky(fl.chol, caps=caps)
-        keys = sorted(fl._sched)
-        fl._prepared_all = dict(zip(keys, fl.inc.prepare_host_batch(
-            [fl._sched[si] for si in keys])))
+        fl._walk_schedule()
     return fl
 
 
@@ -115,7 +113,7 @@ def _finish(fl):
 @pytest.mark.parametrize("case", ["default", "pushes_and_overflows"])
 def test_runner_is_bitwise_apply_pending_and_step(manhattan, case):
     """At every solve point through the runner, the held stores, eta0 and
-    dx equal those of _apply_pending + IncrementalCholesky.step bit for
+    dx equal those of absorb + IncrementalCholesky.solve_with_norm bit for
     bit, one omega batch or several; so do the replay's chi2, iterations and states.  With a low
     push threshold and capacities at the walk's 75th percentile, the replay pushes
     and overflows, and the held tensors keep their storage through both,

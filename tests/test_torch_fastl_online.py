@@ -1,21 +1,21 @@
 """Port parity for the streaming FastL (solvers/fastl_online.py) and the
-maintained factor's standalone dirty step
-(IncrementalCholesky.refactor_dirty), float64 on the CPU, against the JAX
-package's OnlineFastLSolver (its JAX engine) and the port's own replay.
+maintained factor's standalone dirty step (FastLSolver.absorb with a walk,
+as the stream takes it), float64 on the CPU, against the JAX package's
+OnlineFastLSolver (its JAX engine) and the port's own replay.
 
 Tolerances: a stream with no growth rebuild is exact against the replay
 FastL (1e-6 absolute, the JAX test's bound) and against the JAX package's
 stream (1e-8 relative: both pass through two packages' factorizations);
 a stream with growth rebuilds has the JAX package's counts exactly and
 its chi2 to 1e-8 relative, and stays within the JAX test's rebuild bound
-and chi2 <= 1.3 x replay + 10; refactor_dirty's factor against a full
+and chi2 <= 1.3 x replay + 10; the dirty step's factor against a full
 redescent of the same lambda through their solves, 1e-8 x scale (the
 dirty step keeps the last full factorization's Jacobi scaling, so the
 blocks themselves differ by the scaling; two factorizations of a pose
 graph's lambda, kappa ~1e8, measured 1.3e-10), and its stores against the JAX
 package's refactor_dirty on the same lambda 1e-10 x scale, the
 bottom's Cholesky factor 1e-8 (two packages' factorizations); ``ok`` of
-the port's step also asserts that H0 stays the alias of H.
+the port's step also asserts that it updated the stores in place.
 Every stream keeps its capacity above the 32-vertex bottom, so both
 engines have elimination levels (ROADMAP.md Queue 3: the JAX dirty step
 double-adds without them).
@@ -31,6 +31,7 @@ from slam_plus_plus_tpu.solvers.fastl import FastLSolver as JFastL
 from slam_plus_plus_tpu.solvers.fastl_online import OnlineFastLSolver as JOnline
 from slam_plus_plus_tpu_torch.io import datasets as D
 from slam_plus_plus_tpu_torch.io.parser import parse_g2o as tparse
+from slam_plus_plus_tpu_torch.linalg.incremental_cholesky import OMEGA_CAP
 from slam_plus_plus_tpu_torch.solvers.fastl import FastLSolver
 from slam_plus_plus_tpu_torch.solvers.fastl_online import OnlineFastLSolver
 
@@ -98,8 +99,10 @@ def test_growth_stream_matches_jax(tmp_path, monkeypatch):
 @pytest.fixture(scope="module")
 def dirty_step(tmp_path_factory):
     """One dirty step of each package's maintained factor on the same
-    manhattan: the stores at a solve point, with the pending edges' omega
-    applied, before and after refactor_dirty."""
+    manhattan: the stores at a solve point after the pending edges' omega
+    and the dirty refresh (the port's absorb from the batch's walk, the JAX
+    package's _apply_pending and refactor_dirty); the port's entry also
+    keeps what the step started from."""
     p = _manhattan(tmp_path_factory.mktemp("dirty"), 160, 5, loop_prob=0.4)
     out = {}
     for name, fl in (("port", FastLSolver(tparse(p), device="cpu")),
@@ -118,13 +121,15 @@ def dirty_step(tmp_path_factory):
             for (slot, _gid) in st["new_vs"]:
                 nm[slot] = 1.0
             pending.append((st["ename"], st["li"], nm))
-        stores, eta0 = fl._init_stores(states, counts, fl.steps[99]["n_active"])
+        n_active = fl.steps[99]["n_active"]
         if name == "port":
-            pos, vals = fl._apply_pending(stores, eta0, states, pending)
-            ok = fl.inc.refactor_dirty(stores, pos, vals)
-            alias = stores["H0"] is stores["H"]
-            out[name] = (fl, {k: v.clone() for k, v in stores.items()}, ok and alias)
+            stores, eta0 = fl.rebuild(states, counts, n_active)
+            walk = fl.walk(pending)
+            ok = walk is not None and fl.absorb(stores, eta0, states, pending, walk) is stores
+            out[name] = (fl, {k: v.clone() for k, v in stores.items()}, ok,
+                         (states, counts, n_active, pending))
         else:
+            stores, eta0 = fl._init_stores(states, counts, n_active)
             eta0, pos, vals = fl._apply_pending(stores, eta0, states, pending)
             ok = fl.inc.refactor_dirty(stores, pos, vals)
             out[name] = (fl, {k: np.asarray(v) for k, v in stores.items()}, ok)
@@ -137,17 +142,17 @@ def test_refactor_dirty_equals_a_full_redescent(dirty_step):
     factors hold differently scaled blocks of the same lambda: they are
     compared through what they compute, the solve of three seeded
     right-hand sides."""
-    fl, st, ok = dirty_step["port"]
+    fl, st, ok, _ctx = dirty_step["port"]
     inc = fl.inc
     assert ok and len(fl.chol.plan.levels) >= 2
     full = inc.refactor_full({k: v.clone() for k, v in st.items()})
     b = torch.as_tensor(np.random.default_rng(8).normal(size=(fl.asm.Np, fl.asm.Bp, 3)))
-    got, want = inc._solve(st, b), inc._solve(full, b)
+    got, want = inc.solve(st, b), inc.solve(full, b)
     assert (got - want).abs().max() <= 1e-8 * want.abs().max()
 
 
 def test_refactor_dirty_matches_jax(dirty_step):
-    fl, st, ok = dirty_step["port"]
+    fl, st, ok, _ctx = dirty_step["port"]
     jfl, jst, jok = dirty_step["jax"]
     inc = fl.inc
     assert ok and jok
@@ -158,19 +163,19 @@ def test_refactor_dirty_matches_jax(dirty_step):
 
 
 def test_refactor_dirty_reports_an_overflow(dirty_step):
-    """Past the omega capacity the dirty step refuses, leaving the stores
-    as they were, and step() returns None."""
-    from slam_plus_plus_tpu_torch.linalg import incremental_cholesky as ic
-    fl, st, _ok = dirty_step["port"]
-    stores = {k: v.clone() for k, v in st.items()}
-    pos = [np.arange(ic.OMEGA_CAP + 1) % fl.inc.K0]
-    vals = [torch.zeros((ic.OMEGA_CAP + 1, fl.asm.Bp ** 2), dtype=torch.float64)]
-    assert fl.inc.refactor_dirty(stores, pos, vals) is False
-    # (a SINK row may hold NaN: the inverse of its zero block)
-    assert all(torch.equal(stores[k].nan_to_num(), st[k].nan_to_num())
-               for k in ("H", "C", "W", "P", "L"))
-    assert fl.inc.step(stores, torch.zeros(fl.asm.Np, fl.asm.Bp, dtype=torch.float64),
-                       pos, vals) is None
+    """Past the omega capacity the walk reports an overflow (None), and
+    absorb without a walk takes the full redescent: fresh stores, which
+    solve as the dirty step's factor of the same lambda (1e-8 x scale, as
+    above)."""
+    fl, st, _ok, (states, counts, n_active, pending) = dirty_step["port"]
+    inc = fl.inc
+    assert inc.prepare_host_batch([[np.arange(OMEGA_CAP + 1) % inc.K0]]) == [None]
+    stores, eta0 = fl.rebuild(states, counts, n_active)
+    full = fl.absorb(stores, eta0, states, pending, None)
+    assert full is not stores
+    b = torch.as_tensor(np.random.default_rng(9).normal(size=(fl.asm.Np, fl.asm.Bp, 3)))
+    got, want = inc.solve(full, b), inc.solve(st, b)
+    assert (got - want).abs().max() <= 1e-8 * want.abs().max()
 
 
 def test_out_of_order_ids_are_refused():

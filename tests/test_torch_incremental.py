@@ -1,9 +1,10 @@
 """Port parity for incremental SLAM, float64 on the CPU: the device vertex
 initializers and the active-prefix assembly against the JAX package; the
 maintained factor's flat stores after the first dirty step against the JAX
-package's FastLSolver (dirty refresh, its JAX engine) on the same file,
-and the float32 replay against the JAX package's float32 one; the
-capacity overflow to the full redescent; the incremental lambda
+package's FastLSolver (dirty refresh, its JAX engine) on the same file;
+the capacity overflow to the full redescent, against the JAX package's
+full-refresh replay; the construction's walks against the JAX package's
+per-point walk, and the replay's use of them; the incremental lambda
 solver's reference goldens on its delegated and its own path, and its own
 path on a Sim(3) chain (blocks 7 wide) against the JAX package's; an SE(3)
 ternary-edge replay; the CLI's -nsp / -fL / error lines; and FastL's
@@ -220,24 +221,6 @@ def test_dirty_stores_match_jax(files, name):
     assert it == jit and abs(chi2 - jchi2) <= 1e-8 * jchi2
 
 
-def test_float32_replay_follows_jax(files):
-    """The float32 engine (``dtype=torch.float32``, the JAX package's
-    override; the card's default is float64) against the JAX package's
-    float32 FastL on the same file: the same iterations and pushes, the
-    final chi2 to 1e-3 relative (measured 4e-5: 50.9798 against JAX's
-    50.9777; both 10.3% above the float64 replay's 46.2038, the float32
-    one-time dx from the odometry linearization)."""
-    path = files["manhattan300_91"]
-    jfl = JFastL(jparse(path), every_n=1, refresh="dirty", use_native=False,
-                 config=SolverConfig(dtype=jnp.float32))
-    jchi2, jit = jfl.run()
-    tfl = TFastL(tparse(path), device="cpu", dtype=torch.float32)
-    chi2, it = tfl.run()
-    assert tfl.asm.dtype == torch.float32
-    assert it == jit and tfl.stats["pushes"] == jfl.stats["pushes"]
-    assert abs(chi2 - jchi2) <= 1e-3 * jchi2
-
-
 def test_plan_without_levels_keeps_h_equal_to_the_bottom(tmp_path):
     """A graph no larger than the bottom has no elimination level, so its
     level-0 blocks ARE the bottom pattern: after a dirty step the H store
@@ -260,16 +243,15 @@ def test_plan_without_levels_keeps_h_equal_to_the_bottom(tmp_path):
 def test_full_redescents_end_where_the_full_refresh_ends(files, case):
     """Solve points that take the full redescent inside a dirty replay —
     capacity overflows forced by tiny capacities, counted in stats — end
-    the replay where the full-refresh replay ends (manhattan 300: 8
-    iterations; landmarks 150/60, where a step reaches landmark rows)."""
+    the replay where the JAX package's full-refresh replay (its JAX
+    engine) ends (manhattan 300: 8 iterations; landmarks 150/60, where a
+    step reaches landmark rows)."""
     path = files["landmarks150" if case.endswith("landmarks") else "manhattan300_91"]
-    full = TFastL(tparse(path), device="cpu", refresh="full")
+    full = JFastL(jparse(path), every_n=1, refresh="full", use_native=False)
     want, want_it = full.run()
     fl = TFastL(tparse(path), device="cpu")
     fl.inc = IncrementalCholesky(fl.chol, caps=dict(d=8, e=2, w=4, p=4))
-    keys = sorted(fl._sched)
-    fl._prepared_all = dict(zip(keys, fl.inc.prepare_host_batch(
-        [fl._sched[si] for si in keys])))
+    fl._walk_schedule()
     chi2, it = fl.run()
     assert fl.stats["dirty_overflows"] > 0
     assert fl.stats["full_refactors"] > full.stats["full_refactors"]
@@ -279,13 +261,25 @@ def test_full_redescents_end_where_the_full_refresh_ends(files, case):
 
 
 def test_prepare_host_matches_the_batch_walk(files):
-    """The per-point reachability walk (prepare_host) gives, at every solve
-    point of a replay, what the vectorized batch walk packed for it."""
-    fl = TFastL(tparse(files["landmarks150"]), device="cpu")
+    """The construction's batch walk gives, at every solve point of a
+    replay, what the JAX package's per-point reachability walk
+    (IncrementalCholesky.prepare_host) packs on the same plan."""
+    path = files["landmarks150"]
+    jfl = JFastL(jparse(path), every_n=1, refresh="dirty", use_native=False)
+    fl = TFastL(tparse(path), device="cpu")
+    inc, jinc = fl.inc, jfl.inc
+    # the same plan, capacities and slot layout, and the same schedule
+    assert len(fl.chol.plan.levels) >= 2
+    assert (inc.KH, inc.NC, inc.NW, inc.NP) == (jinc.KH, jinc.NC, jinc.NW, jinc.NP)
+    assert ((inc.cap_d, inc.cap_e, inc.cap_w, inc.cap_p) ==
+            (jinc.cap_d, jinc.cap_e, jinc.cap_w, jinc.cap_p))
+    assert inc._slots == jinc._slots
+    assert sorted(fl._sched) == sorted(jfl._sched) == sorted(fl._prepared_all)
     assert len(fl._prepared_all) > 100
     n_over = 0
     for si, packed in fl._prepared_all.items():
-        one = fl.inc.prepare_host(fl._sched[si])
+        assert all(np.array_equal(a, b) for a, b in zip(fl._sched[si], jfl._sched[si]))
+        one = jinc.prepare_host(jfl._sched[si])
         assert (one is None) == (packed is None)
         if packed is None:
             n_over += 1
@@ -293,6 +287,39 @@ def test_prepare_host_matches_the_batch_walk(files):
         for a, b in zip(one, packed):
             assert np.array_equal(a, b)
     assert n_over < len(fl._prepared_all)
+
+
+@pytest.mark.parametrize("name", ["manhattan300_91", "landmarks150"])
+def test_every_solve_point_takes_its_walk_from_construction(files, name):
+    """Every solve point with pending edges takes the walk construction
+    planned for it: the runner gets exactly the planned walks, in order,
+    and each point planned None (an overflow) takes the full redescent;
+    the replay walks nothing of its own."""
+    fl = TFastL(tparse(files[name]), device="cpu")
+    planned = [fl._prepared_all[si] for si in sorted(fl._prepared_all)]
+    assert planned and len(planned) == len(fl._sched)
+    got = []
+    inner, absorb = fl._solve_point, fl.absorb
+
+    def solve_point(chunks, hp):
+        got.append(hp)
+        return inner(chunks, hp)
+
+    def absorb_spy(stores, eta0, states, pending, walk):
+        got.append(walk)
+        return absorb(stores, eta0, states, pending, walk)
+
+    def no_walk(pending):
+        raise AssertionError("the replay walked a solve point")
+
+    fl._solve_point, fl.absorb, fl.walk = solve_point, absorb_spy, no_walk
+    fl.run()
+    # the trailing edges' redescent, where there are any, comes last
+    tail = len(got) - len(planned)
+    assert tail in (0, 1) and all(w is None for w in got[len(planned):])
+    assert all(g is p for g, p in zip(got, planned))
+    assert fl.stats["omega_steps"] == len(planned)
+    assert fl.stats["dirty_overflows"] == sum(p is None for p in planned)
 
 
 @pytest.mark.parametrize("case", ["manhattan_delegated", "manhattan_own_path",

@@ -121,9 +121,7 @@ def test_matches_torch_engine(files, case, mode):
     ("sphere40", {}, "SE\\(2\\) and 2D-landmark graphs; this one has pose3d, edge_pose3d"),
     ("m300_92", {"marginals": True}, "no in-loop marginals"),
     ("m300_92", {"device": "cuda"}, "on the host: device 'cuda'"),
-    ("m300_92", {"dtype": torch.float32}, "float64"),
-    ("m300_92", {"refresh": "full"}, "dirty refresh"),
-], ids=["se3", "marginals", "cuda", "float32", "full_refresh"])
+], ids=["se3", "marginals", "cuda"])
 def test_unsupported_replays_raise(files, case, kw, reason):
     kw = {"device": "cpu", **kw}
     with pytest.raises(UnsupportedReplay, match=reason):

@@ -13,6 +13,7 @@ import torch
 
 from slam_plus_plus_tpu_torch.io import datasets as D
 from slam_plus_plus_tpu_torch.io.parser import parse_g2o
+from slam_plus_plus_tpu_torch.linalg.incremental_cholesky import IncrementalCholesky
 from slam_plus_plus_tpu_torch.linalg.schur import SchurSolver
 from slam_plus_plus_tpu_torch.solvers.fastl import FastLSolver
 from slam_plus_plus_tpu_torch.solvers.lm import LevenbergMarquardtSolver
@@ -93,9 +94,13 @@ def manhattan(tmp_path_factory):
 @pytest.mark.parametrize("refresh, dx_threshold", [("dirty", 20.0), ("dirty", 0.05),
                                                    ("full", 20.0)])
 def test_fastl_replay_spans(manhattan, refresh, dx_threshold):
+    """refresh "full": capacities so small that every walk overflows, so
+    every omega step takes the full redescent."""
     def replay():
-        fl = FastLSolver(parse_g2o(manhattan), device="cpu", refresh=refresh,
-                         dx_threshold=dx_threshold)
+        fl = FastLSolver(parse_g2o(manhattan), device="cpu", dx_threshold=dx_threshold)
+        if refresh == "full":
+            fl.inc = IncrementalCholesky(fl.chol, caps=dict(d=1, e=1, w=1, p=1))
+            fl._walk_schedule()
         out = fl.run()
         return fl, out, {t: s.data.copy() for t, s in fl.system.vertex_stores.items()}
 
@@ -124,9 +129,9 @@ def test_fastl_replay_spans(manhattan, refresh, dx_threshold):
     tail = [s for s in syncs if s.parent == root.id]
     assert len(tail) in (1, 2) and len(syncs) == iters + len(tail)
     assert len(_names(spans, "fastl.update")) >= fl.stats["pushes"]
-    # each full refactorization, each omega step's without the dirty
-    # refresh, and the trailing one of closures left pending
-    rebuilds = fl.stats["full_refactors"] + (fl.stats["omega_steps"] if refresh == "full" else 0)
+    # each full refactorization (an overflow's among them), and the
+    # trailing one of closures left pending
+    rebuilds = fl.stats["full_refactors"]
     assert 0 <= len(_names(spans, "fastl.rebuild")) - rebuilds <= 1
     per_point = [c for c in counts if c.name == "fastl.pending_edges"]
     assert len(per_point) == len(points) and {c.span for c in per_point} == in_points
@@ -136,14 +141,16 @@ def test_fastl_replay_spans(manhattan, refresh, dx_threshold):
     assert sorted(c.span for c in graph) == sorted(in_points)
     assert fl.stats["graph_replays"] + fl.stats["graph_eager"] == len(points)
     reasons = {c.name.rsplit(".", 1)[1] for c in graph}
+    assert len(dirty) == fl.stats["omega_steps"] and all(c.n > 0 for c in dirty)
+    assert _names(spans, "inc.solve")
+    assert len(_names(spans, "fastl.pack")) == sum(c.name.endswith(".cpu") for c in graph)
     if refresh == "dirty":
-        assert len(dirty) == fl.stats["omega_steps"] and all(c.n > 0 for c in dirty)
-        assert _names(spans, "inc.refresh") and _names(spans, "inc.solve")
-        assert len(_names(spans, "fastl.pack")) == sum(c.name.endswith(".cpu") for c in graph)
+        assert _names(spans, "inc.refresh")
         assert "cpu" in reasons and reasons <= {"cpu", "overflow", "no_omega"}
     else:
-        assert not dirty and not _names(spans, "inc.refresh")
-        assert reasons <= {"full_refresh", "no_omega"}
+        assert fl.stats["dirty_overflows"] == fl.stats["omega_steps"] > 0
+        assert all(c.n == fl.inc.KH for c in dirty) and not _names(spans, "inc.refresh")
+        assert "overflow" in reasons and reasons <= {"overflow", "no_omega"}
     levels = _names(spans, "chol.level")
     assert levels and {s.attrs["phase"] for s in levels} >= {"factor", "down", "up"}
 
