@@ -287,17 +287,14 @@ def _equilibrated_cholesky(dense):
     so it scales by |d| and takes the smallest ridge of RIDGE_LADDER that
     gives a finite factor; the caller's PCG corrects against the true
     residual, so a ridge only weakens the preconditioner."""
-    d = torch.diagonal(dense)
     if dense.dtype != torch.float32:
+        d = torch.diagonal(dense)
         s = torch.rsqrt(torch.clamp_min(d, 1e-10))
         L, info = torch.linalg.cholesky_ex(dense * s[:, None] * s[None, :])
         return L.masked_fill(info != 0, float("nan")), s
-    s = torch.rsqrt(torch.clamp_min(torch.abs(d), 1e-10))
-    A = dense * s[:, None] * s[None, :]
+    A, s = _f32_equilibrated(dense)
     for ridge in RIDGE_LADDER:
-        L, info = torch.linalg.cholesky_ex(A + ridge * torch.eye(
-            A.shape[0], dtype=A.dtype, device=A.device))
-        ok = (info == 0) & torch.isfinite(L).all()
+        L, ok = _f32_rung(A, ridge)
         with span("host_sync"):
             ok = bool(ok)
         if ok:
@@ -305,6 +302,20 @@ def _equilibrated_cholesky(dense):
     else:
         L = torch.full_like(A, float("nan"))
     return L, s
+
+
+def _f32_equilibrated(dense):
+    """(A, s): the float32 bottom scaled by s = |diag|^-1/2."""
+    s = torch.rsqrt(torch.clamp_min(torch.abs(torch.diagonal(dense)), 1e-10))
+    return dense * s[:, None] * s[None, :], s
+
+
+def _f32_rung(A, ridge):
+    """(L, ok): one rung of the float32 ridge ladder, its status (the factor
+    succeeded and is finite) left on the device."""
+    L, info = torch.linalg.cholesky_ex(A + ridge * torch.eye(
+        A.shape[0], dtype=A.dtype, device=A.device))
+    return L, (info == 0) & torch.isfinite(L).all()
 
 
 def _bottom_solve(L, s, rhs):
@@ -468,15 +479,21 @@ class BlockCholeskySolver:
                 x = xk
         return x
 
+    def _factor_levels(self, blocks):
+        """(dense bottom, c_invs, Ws, s_vert): the factor of planar blocks
+        [K, B*B] in the caller's pair order, all but the bottom's Cholesky."""
+        H = blocks[self._input_perm]
+        sv, outer = self._jacobi_scale(H)
+        Hb, c_invs, Ws = self._descend(H * outer)
+        return self._bottom_dense(Hb), c_invs, Ws, sv
+
     # -- public ----------------------------------------------------------
 
     def factor(self, blocks) -> BlockCholeskyFactor:
         """Factor planar blocks [K, B*B] given in the caller's pair order."""
         with span("chol.factor"):
-            H = blocks[self._input_perm]
-            sv, outer = self._jacobi_scale(H)
-            Hb, c_invs, Ws = self._descend(H * outer)
-            L, s = _equilibrated_cholesky(self._bottom_dense(Hb))
+            dense, c_invs, Ws, sv = self._factor_levels(blocks)
+            L, s = _equilibrated_cholesky(dense)
         return BlockCholeskyFactor(tuple(c_invs), tuple(Ws), L, s, sv)
 
     def solve_with_factor(self, f: BlockCholeskyFactor, eta):

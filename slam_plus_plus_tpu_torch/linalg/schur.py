@@ -30,7 +30,7 @@ SC block-sparsely on the pattern pp pairs + landmark-induced camera pairs:
     w       = planar.bmm(u, c_inv[col])                   [Kpl, Bp*Bl]
     rhs_p   = eta_p - segsum_row(planar.bmv(w, eta_l[col]))
     SC      = H_pp - segsum_sc(w[pa] u[pb]^T)             [Ksc, Bp*Bp]
-    dx_p    = BlockCholeskySolver(SC pattern).solve(SC, rhs_p)
+    dx_p    = GraphedBlockCholeskySolver(SC pattern).solve(SC, rhs_p)
     dx_l    = planar.bmv(c_inv, eta_l - segsum_col(u^T dx_p[row]))
 
 over every (i <= j) pair of each landmark's observations.  When the uniform
@@ -53,7 +53,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from slam_plus_plus_tpu_torch.linalg.block_cholesky import BlockCholeskySolver
+from slam_plus_plus_tpu_torch.linalg.chol_graph import GraphedBlockCholeskySolver
 from slam_plus_plus_tpu_torch.linalg.dense import DenseScatter, cholesky_solve
 from slam_plus_plus_tpu_torch.ops import clique as k3
 from slam_plus_plus_tpu_torch.ops import planar
@@ -117,7 +117,8 @@ class SchurSolver:
     the panels, ``sparse_reduced`` whether SC is formed block-sparsely, and
     then ``clique`` whether the clique path engaged, ``Ksc`` the number of
     SC blocks and ``reduced_chol`` the block Cholesky of the reduced system
-    (its ``n_levels`` and ``plan.n_bottom``).  With the tracer on, each
+    (its ``n_levels`` and ``plan.n_bottom``; a CUDA graph per key on the
+    card, ``linalg/chol_graph.py``).  With the tracer on, each
     solve counts ``schur.route.<route>``; the uniform branch times K2 in
     the span ``schur.panels`` and counts the panels' bytes in
     ``schur.panel_bytes``; a solve that K3 serves counts
@@ -286,9 +287,10 @@ class SchurSolver:
         self.fill_dst = np.searchsorted(self.sc_keys, fill_keys)
         self.fill_pa, self.fill_pb = order[pa], order[pb]   # pl block ids
         self.Ksc = len(self.sc_keys)
-        # the JAX package's defaults: no float32 depth cap, no PCG
-        self.reduced_chol = BlockCholeskySolver(self.sc_rows, self.sc_cols, Np, asm.Bp,
-                                                device=asm.device)
+        # the JAX package's defaults: no float32 depth cap, no PCG; one
+        # pattern re-factored every trial, so a CUDA graph per key
+        self.reduced_chol = GraphedBlockCholeskySolver(self.sc_rows, self.sc_cols, Np,
+                                                       asm.Bp, device=asm.device)
 
         def t(x):
             return torch.as_tensor(np.asarray(x), device=asm.device)

@@ -50,6 +50,7 @@ from typing import Dict, Optional
 import torch
 
 from slam_plus_plus_tpu_torch.linalg.incremental_cholesky import OMEGA_CAP
+from slam_plus_plus_tpu_torch.utils import cuda_graph
 from slam_plus_plus_tpu_torch.utils.timer import count, span
 
 #: the factor stores the chain reads at fixed addresses ("L" and "s" it
@@ -146,7 +147,8 @@ class SolvePointRunner:
             return self._eager(key, n, self.eager_reason)
         if not self._warm.issuperset(key):
             self._warm.update(key)
-            return self._on_side(lambda: self._eager(key, n, "warm_up"))
+            return cuda_graph.on_side(self._side, self.device,
+                                      lambda: self._eager(key, n, "warm_up"))
         g = self._graphs.get(key)
         if g is None:
             g = self._capture(key)
@@ -190,34 +192,13 @@ class SolvePointRunner:
         self._copy(n)
         return self._chain(key)
 
-    def _on_side(self, fn):
-        """fn() on the side stream, ordered after and before the current
-        stream's work."""
-        main = torch.cuda.current_stream(self.device)
-        self._side.wait_stream(main)
-        with torch.cuda.stream(self._side):
-            out = fn()
-        main.wait_stream(self._side)
-        return out
-
     def _capture(self, key):
         """The chain of key captured on the side stream: (graph, dx, norm,
         L, s), or None (the solver stays eager) if the capture fails."""
-        graph = torch.cuda.CUDAGraph()
-        main = torch.cuda.current_stream(self.device)
-        self._side.wait_stream(main)
         try:
-            with torch.cuda.graph(graph, stream=self._side, capture_error_mode="global"):
-                mode = torch.cuda.get_sync_debug_mode()
-                torch.cuda.set_sync_debug_mode("error")
-                try:
-                    dx, norm = self._chain(key)
-                finally:
-                    torch.cuda.set_sync_debug_mode(mode)
+            graph, (dx, norm) = cuda_graph.capture(self._side, self.device,
+                                                   lambda: self._chain(key))
         except Exception as e:
-            # a capture that ends in a CUDA error leaves the side stream current
-            torch.cuda.set_stream(main)
-            torch.cuda.synchronize(self.device)
             self.capture_failure = f"{key}: {e}"
             self.eager_reason = "capture_failed"
             warnings.warn(f"FastL solve point not captured as a CUDA graph ({e}); the "
