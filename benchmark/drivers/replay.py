@@ -1,7 +1,8 @@
 """Whole incremental replays, back to back: restore the parsed initial
 estimate and run ``FastLSolver.run()`` of the solver built in set-up, which
 feeds the stream edge by edge and solves at every solve point.  The warm-up
-replays a short prefix of the same stream on a solver of its own.
+replays a short prefix of the same stream on a solver of its own, read from
+a g2o file of its own by the program's parser, as the whole stream is.
 
 The profiled part of a replay is the traffic's ``profile_part`` [a, b), as
 shares of the stream's edges: the replay plan the solver walks
@@ -11,6 +12,9 @@ whole replay under the profiler's device tracing runs 1.6x as long and
 takes minutes to read back."""
 
 from __future__ import annotations
+
+import os
+import tempfile
 
 from benchmark import drivers
 
@@ -41,17 +45,16 @@ class ReplayDriver:
         self.chi2 = float("nan")
 
     def route(self) -> str:
-        return f"{self.solver.asm.dtype}, refresh {self.solver.refresh}"
+        return f"{self.solver.asm.dtype}, FastL over {len(self.solver.steps)} edges"
 
     def warm_up(self):
-        import slam_plus_plus_tpu_torch.models  # noqa: F401  (registers the types)
-        from slam_plus_plus_tpu_torch.graph.system import GraphSystem
+        from slam_plus_plus_tpu_torch.io.native_parser import parse_g2o_fast
         from slam_plus_plus_tpu_torch.solvers.fastl import FastLSolver
 
-        pre = self.scene.prefix(self.warm_poses).as_read()
-        g = GraphSystem()
-        for i, j, z, info in zip(pre.edge_i, pre.edge_j, pre.z, pre.info):
-            g.add_edge("edge_pose2d", (int(i), int(j)), z, info)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "prefix.g2o")
+            self.scene.prefix(self.warm_poses).write(path)
+            g = parse_g2o_fast(path)
         FastLSolver(g, device=self.device, **self.kw).run()
 
     def unit(self, part=None) -> float:

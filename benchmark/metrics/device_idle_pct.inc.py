@@ -1,11 +1,9 @@
-"""The device's idle share, in percent: 1 - the busy time of the profiled
-part of a unit, profiled with the device's activities alone (the union of
-their intervals), over the wall time of that part untraced, the median of
-the same run's window.  The profiled part's own wall would count what the
-profiler adds to the host's time as idle."""
+"""device_idle_pct.inc: the device's idle share in a replay's profiled part
+(the traffic's ``profile_part`` of the stream), in percent
+(``benchmark.trace.idle_pct``)."""
+
+from benchmark.trace import idle_pct
 
 
 def read(ctx):
-    if not ctx.trace.n_device or ctx.part_s <= 0:
-        return None
-    return 100.0 * (1.0 - ctx.trace.busy_s / ctx.part_s)
+    return idle_pct(ctx.trace, ctx.part_s)

@@ -2,9 +2,8 @@
 Cholesky (SchurSolver.reduced_chol.solve): the mean of the window's spans,
 each synchronised with the device on entry and exit."""
 
+from benchmark.spans import mean_ms
+
 
 def read(ctx):
-    times = ctx.spans.get("factor")
-    if not times:
-        return None
-    return 1e3 * sum(times) / len(times)
+    return mean_ms(ctx.spans.get("factor"))

@@ -2,9 +2,8 @@
 clique fill, the reduced factor and the back-substitution): the mean of
 the window's spans, each synchronised with the device on entry and exit."""
 
+from benchmark.spans import mean_ms
+
 
 def read(ctx):
-    times = ctx.spans.get("schur")
-    if not times:
-        return None
-    return 1e3 * sum(times) / len(times)
+    return mean_ms(ctx.spans.get("schur"))

@@ -19,7 +19,8 @@ under the profiler of host operations too, whose idle gaps the breakdown
 names; the line carries the per-layer metrics instead.
 
 After the window the program's answer of the last unit is compared with
-the configuration's plain reference (``benchmark/reference``), run in
+the plain reference (``benchmark/reference``) that the traffic file names,
+or else the configuration's, run in
 float64 on the same device once the program's state is freed; each number
 is held to its limit in ``limits/<cell>.json``.  The last lines of the
 error stream give each number beside its limit, and the result line's last
@@ -219,7 +220,8 @@ def run_cell(spec, workload: str, seed: int, seconds: float, trace: bool, device
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    ref_mod = importlib.import_module(f"benchmark.reference.{cfg['reference']}")
+    ref_mod = importlib.import_module(
+        f"benchmark.reference.{traffic.get('reference', cfg['reference'])}")
     t = time.perf_counter()
     ref = ref_mod.solve(scene.as_read(), traffic, FLOAT64, device)
     t_ref = time.perf_counter() - t

@@ -8,6 +8,14 @@ import time
 from collections import defaultdict
 
 
+def mean_ms(times):
+    """Milliseconds per call: the mean of a span's recorded seconds; None
+    where the span never ran (nothing to read)."""
+    if not times:
+        return None
+    return 1e3 * sum(times) / len(times)
+
+
 class Spans:
     def __init__(self, sync):
         self.sync = sync

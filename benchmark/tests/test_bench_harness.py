@@ -13,7 +13,7 @@ import pytest
 
 from benchmark import run
 from benchmark.spec import HERE, ROOT, Spec
-from benchmark.tests.small import SEED, small_spec
+from benchmark.tests.small import SEED, force_block_cholesky, small_spec
 
 CELLS = [w["name"] for w in Spec().data["workloads"]]
 
@@ -135,3 +135,73 @@ def test_replay_marks_its_part(tmp_path):
     d.unit((lambda: calls.append("begin"), lambda: calls.append("end")))
     assert calls == ["begin", "end"]
     assert d.solver.steps is not None and type(d.solver.steps) is list
+
+
+def test_a_new_configuration_runs_at_its_own_test_size(tmp_path):
+    """A configuration that nothing but its own file knows is cut to its
+    ``test_params`` in every CPU test; one that states none is refused."""
+    root = tmp_path / "root"
+    shutil.copytree(HERE, root / "benchmark", ignore=shutil.ignore_patterns("__pycache__"))
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+        bench = json.load(f)
+    cfg = Spec().config("pose-manhattan3500")
+    cfg.update(name="pose-new", test_params=dict(n_poses=150, closures=15))
+    with open(root / "benchmark" / "configs" / "pose-new.json", "w") as f:
+        json.dump(cfg, f)
+    bench["workloads"].append(dict(name="new.batch", config="pose-new", traffic="gn_batch",
+                                   chips=1, why="a configuration added by its files alone"))
+    with open(root / "BENCHMARK.json", "w") as f:
+        json.dump(bench, f)
+    shutil.copy(root / "benchmark" / "limits" / "manhattan3500.batch.json",
+                root / "benchmark" / "limits" / "new.batch.json")
+    spec = small_spec(tmp_path / "small", root=str(root))
+    assert spec.config("pose-new")["scene"]["params"]["n_poses"] == 150
+    r = run.run_cell(spec, "new.batch", SEED, 0.0, False, "cpu", keep_reference=True)
+    assert r["correct"]
+    assert r["_"]["scene"].n_poses == 150 and len(r["_"]["answer"]["pose2d"]) == 150
+    del cfg["test_params"]
+    with open(root / "benchmark" / "configs" / "pose-new.json", "w") as f:
+        json.dump(cfg, f)
+    with pytest.raises(KeyError, match="test_params"):
+        small_spec(tmp_path / "again", root=str(root))
+
+
+def test_gn_batch_routes_to_the_block_cholesky_at_full_size(tmp_path):
+    """At the configuration's 3,500 poses (10,500 dims, past the dense
+    factor's 6,000) the batch GN takes the block Cholesky and no dense
+    factor; the test size, under the limit, takes the dense one.  Built,
+    not solved."""
+    from benchmark import drivers, scenes
+    from slam_plus_plus_tpu_torch.io.native_parser import parse_g2o_fast
+
+    spec = Spec()
+    traffic = spec.traffic("gn_batch")
+    for cfg, want in ((spec.config("pose-manhattan3500"), "_sparse_chol"),
+                      (small_spec(tmp_path).config("pose-manhattan3500"), "_dense")):
+        scene = scenes.generate(cfg, SEED)
+        system = parse_g2o_fast(scenes.scene_file(cfg, scene, SEED, run.CACHE))
+        d = drivers.build(system, scene, cfg, traffic, "cpu")
+        taken = [n for n in ("_schur", "_sparse_chol", "_dense", "_host")
+                 if getattr(d.solver, n) is not None]
+        assert taken == [want], (cfg["scene"]["params"]["n_poses"], d.route())
+        assert d.solver.asm.dtype == drivers.expected_dtype(cfg, "cpu")
+        assert f"linear solver {want}" in d.route()
+
+
+@pytest.mark.parametrize("trace", [False, True])
+def test_gn_batch_on_the_block_cholesky_at_test_size(tmp_path, monkeypatch, capsys, trace):
+    """The GN cell on its full-size route, the block Cholesky, at test size:
+    the reference agrees to rounding, and a traced run reads the factor's
+    and the assembly's spans."""
+    force_block_cholesky(monkeypatch)
+    spec = small_spec(tmp_path)
+    r = run.run_cell(spec, "manhattan3500.batch", SEED, 0.2, trace, "cpu")
+    assert "linear solver _sparse_chol," in capsys.readouterr().err
+    assert r["correct"] and r["failed"] == 0
+    for name, c in r["checks"].items():
+        assert c["value"] <= 1e-6, (name, c)
+    if trace:
+        assert {"factor_ms.gn", "assemble_ms.gn", "construct_s"} <= set(r["metrics"])
+        assert all(r["metrics"][m]["value"] > 0 for m in ("factor_ms.gn", "assemble_ms.gn"))
+    else:
+        assert r["metrics"]["solve_ms.gn"]["value"] > 0

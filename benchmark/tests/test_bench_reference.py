@@ -6,6 +6,8 @@ limits."""
 from __future__ import annotations
 
 import importlib
+import json
+import os
 
 import pytest
 
@@ -50,7 +52,21 @@ def test_tf32_rounding():
 
 
 def test_reference_modules_have_the_entry_points():
-    for cfg_name in ("ba-ring871", "pose-manhattan3500"):
-        mod = importlib.import_module(f"benchmark.reference.{Spec().config(cfg_name)['reference']}")
+    """Every reference that a configuration or a traffic file names, and
+    the one each cell runs."""
+    spec = Spec()
+    named = set()
+    for d in ("configs", "traffic"):
+        for f in os.listdir(os.path.join(spec.dir, d)):
+            with open(os.path.join(spec.dir, d, f)) as fh:
+                data = json.load(fh)
+            if "reference" in data:
+                named.add(data["reference"])
+    for w in spec.data["workloads"]:
+        want = spec.traffic(w["traffic"]).get("reference", spec.config(w["config"])["reference"])
+        assert want in named
+    assert {"ba_lm", "pose_fastl", "pose_gn"} <= named
+    for ref in named:
+        mod = importlib.import_module(f"benchmark.reference.{ref}")
         for fn in ("solve", "compare", "as_answer"):
             assert callable(getattr(mod, fn))

@@ -8,7 +8,10 @@ import pytest
 
 from benchmark import drivers, scenes
 from benchmark.run import CACHE
-from benchmark.tests.small import SEED, small_spec
+from benchmark.spec import Spec
+from benchmark.tests.small import SEED, force_block_cholesky, small_spec
+
+CELLS = [w["name"] for w in Spec().data["workloads"]]
 
 
 def _driver(spec, cell, device):
@@ -36,13 +39,13 @@ def _assert_same(first, second):
         assert np.array_equal(np.asarray(first[k]), np.asarray(second[k])), k
 
 
-@pytest.mark.parametrize("cell", ["ring871.batch", "manhattan3500.fastl"])
+@pytest.mark.parametrize("cell", CELLS)
 def test_repeat_on_cpu(tmp_path, cell):
     _assert_same(*_repeat(small_spec(tmp_path), cell, "cpu")[:2])
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("cell", ["ring871.batch", "manhattan3500.fastl"])
+@pytest.mark.parametrize("cell", CELLS)
 def test_repeat_on_the_card(tmp_path, cell):
     import torch
 
@@ -57,3 +60,21 @@ def test_repeat_on_the_card(tmp_path, cell):
     assert abs(first["chi2"] - second["chi2"]) <= 0.1 * limits["chi2_rel"]["limit"] * first["chi2"]
     assert np.abs(first["cam"] - second["cam"]).max() <= 0.1 * limits["cam_t_gap"]["limit"]
     assert np.abs(first["xyz"] - second["xyz"]).max() <= 0.1 * limits["point_gap"]["limit"]
+
+
+def test_repeat_on_the_block_cholesky_route_on_cpu(tmp_path, monkeypatch):
+    """The GN cell at test size on its full-size route."""
+    force_block_cholesky(monkeypatch)
+    first, second, _, _ = _repeat(small_spec(tmp_path), "manhattan3500.batch", "cpu")
+    _assert_same(first, second)
+
+
+@pytest.mark.card
+def test_repeat_on_the_block_cholesky_route_on_the_card(tmp_path, monkeypatch):
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    force_block_cholesky(monkeypatch)
+    first, second, _, _ = _repeat(small_spec(tmp_path), "manhattan3500.batch", "cuda")
+    _assert_same(first, second)           # fixed-order float64 sums (F3)

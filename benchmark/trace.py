@@ -50,6 +50,17 @@ class Trace:
                 "idle_gaps": [[k[:NAME_CHARS], v] for k, v in gaps]}
 
 
+def idle_pct(trace: Trace, part_s: float):
+    """The device's idle share in percent: 1 - the busy time of a unit's
+    profiled part (the union of its device activities' intervals) over the
+    wall time of that part untraced, the median of the same run's window.
+    The profiled part's own wall would count what the profiler adds to the
+    host's time as idle.  None where the trace holds no device activity."""
+    if not trace.n_device or part_s <= 0:
+        return None
+    return 100.0 * (1.0 - trace.busy_s / part_s)
+
+
 def summarize(events) -> Trace:
     """Reduce a profiler's events (``_KinetoEvent``), array-wise: a replay
     leaves millions."""
