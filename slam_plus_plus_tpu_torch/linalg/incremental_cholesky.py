@@ -203,6 +203,18 @@ class IncrementalCholesky:
             n += int(np.count_nonzero(buf[1:, lo:hi] != self.H_sink))
         return n
 
+    def walk_levels(self, host_packed) -> int:
+        """How many elimination levels a walk (prepare_host_batch's) reaches:
+        1 + the deepest level at which it refactors an eliminated block, 0
+        where it refactors none; every level for None (the full
+        redescent)."""
+        L = len(self.plan.levels)
+        if host_packed is None:
+            return L
+        lo, hi = self._slots["e_pos"]
+        hit = np.flatnonzero((host_packed[1][:L, lo:hi] != self.C_sink).any(axis=1))
+        return int(hit[-1]) + 1 if len(hit) else 0
+
     # ------------------------------------------------------------------
     # host reachability walks: the whole replay's solve schedule is
     # host-static (it depends only on the plan and on which edges are

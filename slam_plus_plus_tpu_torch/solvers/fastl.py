@@ -45,9 +45,12 @@ run, ``fastl.solve_point`` around each solve point, and inside them
 ``fastl.flush``, ``fastl.omega``, ``inc.refresh``, ``inc.solve``,
 ``fastl.pack``, ``fastl.graph_replay``, ``fastl.update``, ``fastl.rebuild``
 and ``host_sync`` (each read of a device value); counters
-``fastl.pending_edges`` and ``inc.dirty_blocks`` per solve point, and one of
-``fastl.graph_replays`` or ``fastl.graph_eager.<reason>`` per solve point
-(``fastl.graph_captures`` per capture).
+``fastl.pending_edges`` and ``inc.dirty_blocks`` per solve point, with
+``fastl.pending_edges.<edge type>`` beside the total and
+``inc.walk_levels`` (the elimination levels the point's walk reaches),
+``fastl.activations.<vertex type>`` per flush (the vertices it places), and
+one of ``fastl.graph_replays`` or ``fastl.graph_eager.<reason>`` per solve
+point (``fastl.graph_captures`` per capture).
 
 ``native=True`` (on the CPU only) builds the host half alone — the
 assembler, the plan, the steps and the omega metadata — and hands the
@@ -348,6 +351,13 @@ class FastLSolver:
         of one row.  Between solve points nothing reads the new vertices,
         so they wait here until the next dispatch."""
         with span("fastl.flush"):
+            if enabled():
+                fed: Dict[str, int] = {}
+                for (ename, slot, _eidx) in self._act_queue:
+                    vt = EDGE_TYPES[ename].vertex_types[slot]
+                    fed[vt] = fed.get(vt, 0) + 1
+                for vt, n in fed.items():
+                    count(f"fastl.activations.{vt}", n)
             for (ename, slot, eidx) in self._act_queue:
                 states = self.asm.place_vertex(states, ename, slot, eidx)
             self._act_queue.clear()
@@ -553,6 +563,12 @@ class FastLSolver:
             # queued rebuild of the last push
             with span("fastl.solve_point", step=si, n_active=step["n_active"]):
                 count("fastl.pending_edges", len(pending))
+                if enabled():
+                    by_type: Dict[str, int] = {}
+                    for (en, _li, _nm) in pending:
+                        by_type[en] = by_type.get(en, 0) + 1
+                    for en, n in by_type.items():
+                        count(f"fastl.pending_edges.{en}", n)
                 states = self._flush_activations(states)
 
                 # omega update of the maintained factor, lazily: the factor
@@ -567,6 +583,7 @@ class FastLSolver:
                     walk = self._prepared_all[si]
                     if enabled():
                         count("inc.dirty_blocks", self.inc.dirty_blocks(walk))
+                        count("inc.walk_levels", self.inc.walk_levels(walk))
                     if walk is not None:
                         # absorb's omega and dirty refresh, then the solve,
                         # as the runner's one chain

@@ -21,7 +21,6 @@ import numpy as np
 import pytest
 import torch
 
-from slam_plus_plus_tpu_torch.graph.system import GraphSystem
 from slam_plus_plus_tpu_torch.io import datasets as D
 from slam_plus_plus_tpu_torch.io.parser import parse_g2o
 from slam_plus_plus_tpu_torch.linalg.incremental_cholesky import IncrementalCholesky
@@ -183,21 +182,25 @@ def test_runner_counters_account_for_every_solve_point(manhattan):
 # on the card
 # ----------------------------------------------------------------------
 
-#: a seed of the benchmark cell manhattan3500.fastl (its scene: the
-#: configuration's walk and closures, this seed's measurement noise)
+#: a seed of the benchmark cells manhattan3500.fastl and victoria.fastl (their
+#: scenes: the configuration's graph, this seed's measurement noise)
 CELL_SEED = 2_876_543_210
 
 
-def _cell_system(n_poses):
-    from benchmark.scenes import manhattan_2d
+def _cell_system(n_poses, config="pose-manhattan3500"):
+    """The first n_poses poses of a benchmark configuration's scene (with
+    every edge among them) as the port's parser reads its file."""
+    import tempfile
 
-    with open(os.path.join(ROOT, "benchmark", "configs", "pose-manhattan3500.json")) as f:
-        params = json.load(f)["scene"]["params"]
-    scene = manhattan_2d.generate(params, CELL_SEED).prefix(n_poses).as_read()
-    g = GraphSystem()
-    for i, j, z, info in zip(scene.edge_i, scene.edge_j, scene.z, scene.info):
-        g.add_edge("edge_pose2d", (int(i), int(j)), z, info)
-    return g
+    from benchmark import scenes
+
+    with open(os.path.join(ROOT, "benchmark", "configs", f"{config}.json")) as f:
+        cfg = json.load(f)
+    scene = scenes.generate(cfg, CELL_SEED).prefix(n_poses)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cell.g2o")
+        scene.write(path)
+        return parse_g2o(path)
 
 
 def _graph_and_eager(system, **kw):
@@ -228,16 +231,18 @@ def _graph_and_eager(system, **kw):
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("n_poses", [300, 3500])
-def test_graph_replay_is_bitwise_the_eager_replay(n_poses):
-    """On the card, float64, the benchmark cell's graph and its 300-pose
-    prefix: the graph replay is bitwise the eager one; the graphs replay
-    95% of the solve points or more, are captured once per key in the
-    solver's first run, and replay in its second run with nothing
-    captured."""
+@pytest.mark.parametrize("config, n_poses", [
+    ("pose-manhattan3500", 300), ("pose-manhattan3500", 3500),
+    ("landmark-victoria-park", 1000), ("landmark-victoria-park", 6969)])
+def test_graph_replay_is_bitwise_the_eager_replay(config, n_poses):
+    """On the card, float64, a FastL cell's graph and a prefix of it (the
+    Victoria Park stream's keys mix odometry and range-bearing batches):
+    the graph replay is bitwise the eager one; the graphs replay 95% of the
+    solve points or more, are captured once per key in the solver's first
+    run, and replay in its second run with nothing captured."""
     import slam_plus_plus_tpu_torch.models  # noqa: F401  (registers the types)
 
-    fl, got = _graph_and_eager(lambda: _cell_system(n_poses))
+    fl, got = _graph_and_eager(lambda: _cell_system(n_poses, config))
     st = fl.stats
     assert st["graph_replays"] >= 0.95 * st["solve_points"]
     second = _finish(fl)
